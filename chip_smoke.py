@@ -1,0 +1,512 @@
+#!/usr/bin/env python3
+"""Builds and drives the PyTorch/CUDA port (src/repro_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure (exit code other than 0, no result line):
+
+ 1. device  - a CUDA card must be present; prints its name and power limit
+              as nvidia-smi gives them; TF32 off for matmuls and cuDNN.
+ 2. build   - compiles the CUDA kernels (src/repro_torch/kernels/csrc, one
+              nvcc per source, in parallel) into build/repro_torch.
+ 3. data    - a PubMed-shaped corpus from the paper's Table 1, made on the
+              card from --seed: n = 141,043 attributes, 47 categories,
+              199 non-missing attributes per row on average (normal spread
+              15%, clipped to [1, 298]), attributes drawn Zipf(1.1)
+              without replacement, padded COO of width 298.  d = 4096
+              (theory.sketch_dim(199) = 4017, rounded up).
+ 4. main    - the README quickstart path through the port's QueryEngine,
+              once per metric ("cham", "hamming"): add_sparse of 524,288
+              rows in chunks of 16,384, remove 1%, compact, topk (k=10)
+              for 256 COO queries, radius for 64 queries at r = the median
+              10th-neighbour distance, pairwise for 64 queries against
+              4,096 ids.  Every answer is held against a brute-force scan
+              of the plain PyTorch versions on the card over the alive
+              rows: ids and distances must be equal, bit for bit, under
+              both metrics (the kernels and the plain versions read one
+              Cham table).  The launch counter of each kernel is set to 0
+              just before this phase and must have risen just after.  The
+              largest band-walk chunk each topk handed the top-k kernel
+              (pow2-padded rows, fewer of them valid) is kept.
+ 5. kernels - each kernel against its plain version on the card, at the
+              shapes the main path gave it, bit for bit; the top-k kernel
+              also at the kept band-walk chunks.  Kernel time, plain time
+              and the bound: the largest of the bytes moved over 3.35 TB/s
+              (the H100 SXM's HBM rate), the 32-bit integer operations
+              over 64 per clock per SM, and the population counts over
+              16 per clock per SM (CUDA C++ Programming Guide, arithmetic
+              instruction throughput, compute capability 9.0), at this
+              card's SM count and maximum SM clock.
+ 6. output  - the nvidia-smi line, one JSON line listing the kernels, and
+              last the line {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+from repro_torch.core import hashing, packing  # noqa: E402
+from repro_torch.core.cabin import CabinParams  # noqa: E402
+from repro_torch.core.cham import cham_from_table, cham_table  # noqa: E402
+from repro_torch.index import QueryEngine  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.cabin_build_sparse import (  # noqa: E402
+    ops as sparse_ops)
+from repro_torch.kernels.hamming import ops as hamming_ops  # noqa: E402
+from repro_torch.kernels.topk_select import ops as topk_ops  # noqa: E402
+
+# PubMed, the paper's Table 1 (repro/data/synthetic.py TABLE1["pubmed"])
+N_DIMS, N_CATEGORIES, DENSITY = 141043, 47, 199
+M_SLOTS = int(DENSITY * 1.5)  # 298, the reference sampler's COO width
+SKETCH_DIM = 4096
+N_ROWS = 524288  # rows ingested per engine: 256 MiB of sketches
+CHUNK = 16384
+ZIPF_A = 1.1
+DRAWS = 1024  # Zipf draws per row; ~498 distinct on average, >= 298 needed
+K = 10
+N_TOPK_QUERIES, N_RADIUS_QUERIES, N_PAIRWISE_IDS = 256, 64, 4096
+
+# H100 SXM HBM rate (NVIDIA data sheet, at 700 W), and the sm_90 issue
+# rates per clock per SM of 32-bit integer add / logic / shift / multiply
+# and of population count (CUDA C++ Programming Guide, arithmetic
+# instruction throughput, compute capability 9.0)
+HBM_BYTES_PER_S = 3.35e12
+INT32_PER_CLOCK_SM = 64
+POPC_PER_CLOCK_SM = 16
+
+REPLACES = {
+    "cabin_build_sparse": "src/repro/kernels/cabin_build_sparse/kernel.py:83",
+    "topk_select": "src/repro/kernels/topk_select/kernel.py:103",
+    "pair_stats": "src/repro/kernels/hamming/kernel.py:70",
+    "row_popcount": "src/repro/kernels/hamming/kernel.py:141",
+}
+SOURCES = {
+    "cabin_build_sparse": "src/repro_torch/kernels/csrc/cabin_build_sparse.cu",
+    "topk_select": "src/repro_torch/kernels/csrc/topk_select.cu",
+    "pair_stats": "src/repro_torch/kernels/csrc/hamming.cu",
+    "row_popcount": "src/repro_torch/kernels/csrc/hamming.cu",
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean device time of fn() in ms, by CUDA events around each of `reps`
+    runs, with the 50 MB L2 cache flushed before each (the main path meets
+    its inputs cold: fresh ingest chunks, a store larger than L2)."""
+    for _ in range(warmup):
+        fn()
+    scrub = torch.empty(2**25, dtype=torch.int32, device="cuda")  # 128 MiB
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(reps):
+        scrub.zero_()
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        total += start.elapsed_time(stop)
+    return total / reps
+
+
+def nvidia_smi(query: str = "name,power.limit") -> str:
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def peak_rates() -> dict:
+    """Operations per second of this card for each operation type."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    per_clock_sm = {"int32": INT32_PER_CLOCK_SM, "popc": POPC_PER_CLOCK_SM}
+    return {"sms": sms, "mhz": mhz, **{
+        kind: n * sms * mhz * 1e6 for kind, n in per_clock_sm.items()}}
+
+
+def bound(n_bytes: float, ops: dict, rates: dict) -> tuple[float, str]:
+    """Least time in ms: bytes over the HBM rate, or each operation
+    type's count over its peak rate, whichever is largest."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(n / rates[kind] * 1e3 for kind, n in ops.items())
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+# ---------------------------------------------------------------------------
+# data
+# ---------------------------------------------------------------------------
+
+
+def pubmed_rows(n: int, gen: torch.Generator, device) -> tuple[torch.Tensor,
+                                                               torch.Tensor]:
+    """Padded COO (indices, values) (n, 298) int32 on `device`.
+
+    Per row: nnz ~ clip(N(199, 29.85), 1, 298) truncated, as the reference
+    sampler; attributes are the first nnz distinct values of a stream of
+    Zipf(1.1) draws, which is the same law as drawing them one by one
+    without replacement; categories uniform in 1..47; 0 pads."""
+    w = 1.0 / torch.arange(1, N_DIMS + 1, dtype=torch.float64,
+                           device=device) ** ZIPF_A
+    cdf = torch.cumsum(w / w.sum(), 0)
+    cdf[-1] = 1.0
+    indices = torch.zeros((n, M_SLOTS), dtype=torch.int32, device=device)
+    values = torch.zeros((n, M_SLOTS), dtype=torch.int32, device=device)
+    for r0 in range(0, n, CHUNK):
+        rows = min(CHUNK, n - r0)
+        nnz = torch.normal(float(DENSITY), DENSITY * 0.15, (rows,),
+                           generator=gen, device=device)
+        nnz = nnz.clamp(1, M_SLOTS).to(torch.int64)
+        u = torch.rand((rows, DRAWS), generator=gen, dtype=torch.float64,
+                       device=device)
+        draws = torch.searchsorted(cdf, u).clamp_(max=N_DIMS - 1)
+        srt, pos = torch.sort(draws, dim=1, stable=True)
+        first_sorted = torch.ones_like(srt, dtype=torch.bool)
+        first_sorted[:, 1:] = srt[:, 1:] != srt[:, :-1]
+        first = torch.zeros_like(first_sorted).scatter_(1, pos, first_sorted)
+        rank = torch.cumsum(first.to(torch.int64), 1) - 1
+        keep = first & (rank < nnz[:, None])
+        row_i, draw_j = torch.nonzero(keep, as_tuple=True)
+        slot = rank[row_i, draw_j]
+        indices[r0 + row_i, slot] = draws[row_i, draw_j].to(torch.int32)
+        values[r0 + row_i, slot] = torch.randint(
+            1, N_CATEGORIES + 1, (len(row_i),), generator=gen,
+            device=device, dtype=torch.int32)
+    return indices, values
+
+
+# ---------------------------------------------------------------------------
+# brute force over the alive rows, with the plain versions
+# ---------------------------------------------------------------------------
+
+
+def plain_dist(q: torch.Tensor, rows: torch.Tensor, metric: str
+               ) -> torch.Tensor:
+    if metric == "cham":
+        inner, _ = hamming_ops.pair_stats_ref(q, rows, op_ham=False)
+        table = cham_table(SKETCH_DIM, q.device, q.shape[1])
+        return cham_from_table(table,
+                               hamming_ops.row_popcount_ref(q)[:, None],
+                               hamming_ops.row_popcount_ref(rows)[None, :],
+                               inner)
+    _, ham = hamming_ops.pair_stats_ref(q, rows, op_inner=False)
+    return ham.to(torch.float32)
+
+
+def largest_band_chunk(call):
+    """Runs call() and returns its result and the largest (q, b, k,
+    m_valid) it handed the top-k kernel with rows past m_valid masked, as
+    the band walk's pow2-padded chunks are."""
+    seen = []
+    real = topk_ops.topk_select
+
+    def spy(q, b, k, *, d, metric="cham", m_valid=None):
+        if (m_valid is not None and m_valid < b.shape[0]
+                and (not seen or m_valid > seen[0][3])):
+            seen[:] = [(q, b, k, m_valid)]
+        return real(q, b, k, d=d, metric=metric, m_valid=m_valid)
+
+    topk_ops.topk_select = spy
+    try:
+        result = call()
+    finally:
+        topk_ops.topk_select = real
+    check(bool(seen), "no band-walk chunk with masked rows reached the "
+          "top-k kernel")
+    return result, seen[0]
+
+
+def main_path(metric: str, idx: torch.Tensor, val: torch.Tensor,
+              q_idx: torch.Tensor, q_val: torch.Tensor,
+              rng: np.random.Generator, card: str) -> dict:
+    """One engine through the quickstart path, checked against brute
+    force.  Returns the queries' sketches, the alive store matrix and the
+    largest band-walk chunk, for the kernel phases."""
+    params = CabinParams.create(N_DIMS, SKETCH_DIM, seed=0)
+    engine = QueryEngine(params, metric=metric, device=idx.device)
+    n = idx.shape[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r0 in range(0, n, CHUNK):
+        engine.add_sparse(idx[r0:r0 + CHUNK], val[r0:r0 + CHUNK])
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    check(len(engine) == n, f"{metric}: {len(engine)} rows after ingest")
+
+    kill = rng.choice(engine.ids(), n // 100, replace=False)
+    check(engine.remove(kill) == len(kill), "remove count")
+    engine.compact()
+    n_alive = n - len(kill)
+    check(len(engine) == n_alive and engine.store.size == n_alive,
+          "compact keeps exactly the alive rows")
+
+    t0 = time.perf_counter()
+    engine.sync_layout()
+    layout_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (nn_ids, nn_d), band_chunk = largest_band_chunk(
+        lambda: engine.topk((q_idx, q_val), K))
+    topk_s = time.perf_counter() - t0
+    check(nn_ids.shape == (N_TOPK_QUERIES, K) and np.isfinite(nn_d).all(),
+          f"{metric}: topk shape/finite")
+
+    rq = (q_idx[:N_RADIUS_QUERIES], q_val[:N_RADIUS_QUERIES])
+    r = float(np.median(nn_d[:N_RADIUS_QUERIES, K - 1]))
+    t0 = time.perf_counter()
+    near = engine.radius(rq, r)
+    radius_s = time.perf_counter() - t0
+
+    sel_ids = np.sort(rng.choice(engine.ids(), N_PAIRWISE_IDS, replace=False))
+    t0 = time.perf_counter()
+    pw_ids, pw = engine.pairwise(rq, sel_ids)
+    pairwise_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+
+    # brute force over the alive rows in id order, plain versions only
+    mat, m_alive, alive_ids = engine.store.gather_alive()
+    alive = mat[:m_alive].contiguous()
+    q_sk = sparse_ops.cabin_build_sparse_ref(
+        q_idx, q_val, d=SKETCH_DIM, psi_seed=params.psi_seed,
+        pi_seed=params.pi_seed)
+    bv, bpos = topk_ops.topk_select_ref(q_sk, alive, K, d=SKETCH_DIM,
+                                        metric=metric)
+    check(np.array_equal(alive_ids[bpos.cpu().numpy()], nn_ids),
+          f"{metric}: topk ids differ from the brute-force scan")
+    check(np.array_equal(bv.cpu().numpy(), nn_d),
+          f"{metric}: topk distances differ from the brute-force scan")
+    dist = plain_dist(q_sk[:N_RADIUS_QUERIES], alive, metric)
+    hit = (dist < torch.tensor(r, dtype=torch.float32)).cpu().numpy()
+    n_hits = 0
+    for qi, got in enumerate(near):
+        want = alive_ids[np.flatnonzero(hit[qi])]
+        check(np.array_equal(got, want),
+              f"{metric}: radius query {qi} differs from brute force")
+        n_hits += len(got)
+    pos = np.searchsorted(alive_ids, sel_ids)
+    check(np.array_equal(pw_ids, sel_ids), "pairwise ids")
+    check(np.array_equal(pw, dist[:, torch.from_numpy(pos).to(dist.device)]
+                         .cpu().numpy()),
+          f"{metric}: pairwise differs from brute force")
+    log(f"[main:{metric}] ingest {n} rows {ingest_s:.3f}s "
+        f"({n / ingest_s:.1f} rows/s), layout {layout_s:.3f}s, "
+        f"topk {N_TOPK_QUERIES} queries {topk_s:.3f}s "
+        f"({N_TOPK_QUERIES / topk_s:.1f} queries/s), radius r={r:.4f} "
+        f"{radius_s:.3f}s ({n_hits} hits), pairwise "
+        f"{N_RADIUS_QUERIES}x{N_PAIRWISE_IDS} {pairwise_s:.3f}s [{card}]")
+    return {"q_sk": q_sk, "alive": alive, "band_chunk": band_chunk}
+
+
+# ---------------------------------------------------------------------------
+# kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def topk_ops_needed(nq: int, m: int, w: int) -> dict:
+    """Operations a k-best of nq queries over m rows of w words needs:
+    per (query, row, word) an AND, a popcount and an add; per (row, word)
+    a popcount and an add for the row weight, which is the row's alone."""
+    return {"int32": 2 * nq * m * w + m * w, "popc": nq * m * w + m * w}
+
+
+def topk_bytes(nq: int, m: int, w: int, k: int) -> int:
+    """The queries and the m valid rows read once, the Cham table, and
+    k (value, index) pairs per query written."""
+    return (nq + m) * w * 4 + (32 * w + 1) * 4 + nq * k * 8
+
+
+def kernel_phases(params: CabinParams, idx: torch.Tensor, val: torch.Tensor,
+                  runs: dict, launches: dict, rates: dict) -> list[dict]:
+    out = []
+    w = packing.packed_width(SKETCH_DIM)
+    rate_text = (f"HBM 3.35e12 B/s; int32 {rates['int32']:.4g} op/s, popc "
+                 f"{rates['popc']:.4g} op/s at {rates['sms']} SMs x "
+                 f"{rates['mhz']:.0f} MHz")
+
+    def record(name, err, ms, plain_ms, n_bytes, ops, **extra):
+        b_ms, b_by = bound(n_bytes, ops, rates)
+        out.append({"name": name, "route": "cuda", "source": SOURCES[name],
+                    "replaces": REPLACES[name], "launches": launches[name],
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                    **extra})
+        log(f"[kernel:{name}] max_abs_err {err} (tolerance 0: bit-identical"
+            f" to the plain version) kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+            f"{n_bytes:.0f} bytes, operations {ops}; {rate_text})")
+
+    # B1: one ingest chunk, (16384, 298) COO -> (16384, 128)
+    ci, cv = idx[:CHUNK].contiguous(), val[:CHUNK].contiguous()
+    kw = dict(d=SKETCH_DIM, psi_seed=params.psi_seed, pi_seed=params.pi_seed)
+    got = sparse_ops.cabin_build_sparse(ci, cv, **kw)
+    want = sparse_ops.cabin_build_sparse_ref(ci, cv, **kw)
+    check(torch.equal(got, want), "cabin_build_sparse != plain version")
+    live = int((cv != 0).sum())
+    psi_hits = int(hashing.psi_bits(ci, cv, params.psi_seed).sum())
+    record("cabin_build_sparse", 0,
+           cuda_ms(lambda: sparse_ops.cabin_build_sparse(ci, cv, **kw), 20),
+           cuda_ms(lambda: sparse_ops.cabin_build_sparse_ref(ci, cv, **kw), 2),
+           # every value read, an index only where its value is not 0,
+           # every sketch word written
+           (ci.numel() + live) * 4 + CHUNK * w * 4,
+           # psi per live slot: two fmix32 (8 each), the key add, the
+           # category multiply, shift, add and xor, the bit test (22);
+           # pi where psi is 1: the key add, one fmix32, the modulo, and
+           # the bit's shift, mask, shift and OR (14)
+           {"int32": live * 22 + psi_hits * 14})
+
+    alive = runs["cham"]["alive"]
+    q_sk = runs["cham"]["q_sk"]
+    n_alive = alive.shape[0]
+
+    # B4: the row weights of the alive store (radius and pairwise reads)
+    got = hamming_ops.row_popcount(alive)
+    want = hamming_ops.row_popcount_ref(alive)
+    check(torch.equal(got, want), "row_popcount != plain version")
+    record("row_popcount", 0,
+           cuda_ms(lambda: hamming_ops.row_popcount(alive), 20),
+           cuda_ms(lambda: hamming_ops.row_popcount_ref(alive), 2),
+           n_alive * w * 4 + n_alive * 4,
+           {"int32": n_alive * w, "popc": n_alive * w})
+
+    # B3: the radius scan's tile batch, 64 queries x 65,536 rows
+    qa = q_sk[:N_RADIUS_QUERIES].contiguous()
+    rows = alive[:65536].contiguous()
+    gi, gh = hamming_ops.pair_stats(qa, rows)
+    wi, wh = hamming_ops.pair_stats_ref(qa, rows)
+    check(torch.equal(gi, wi) and torch.equal(gh, wh),
+          "pair_stats != plain version")
+    mq, nr = qa.shape[0], rows.shape[0]
+    record("pair_stats", 0,
+           cuda_ms(lambda: hamming_ops.pair_stats(qa, rows, op_ham=False), 10),
+           cuda_ms(lambda: hamming_ops.pair_stats_ref(qa, rows, op_ham=False),
+                   1),
+           (mq + nr) * w * 4 + mq * nr * 4,
+           # per (query, row, word): AND, popcount, add
+           {"int32": 2 * mq * nr * w, "popc": mq * nr * w})
+
+    # B2: 256 queries against the whole alive store, k = 10, both metrics,
+    # and each metric's largest band-walk chunk (rows past m_valid masked)
+    errs, ms, plain_ms, chunks = [], [], [], {}
+    for metric in ("cham", "hamming"):
+        cq, cb, ck, cm = runs[metric]["band_chunk"]
+        gv, gi = topk_ops.topk_select(cq, cb, ck, d=SKETCH_DIM,
+                                      metric=metric, m_valid=cm)
+        wv, wi = topk_ops.topk_select_ref(cq, cb, ck, d=SKETCH_DIM,
+                                          metric=metric, m_valid=cm)
+        check(torch.equal(gi, wi) and torch.equal(gv, wv),
+              f"topk_select != plain at the band chunk ({metric})")
+        errs.append(float((gv - wv).abs().max()))
+        c_ms = cuda_ms(lambda: topk_ops.topk_select(
+            cq, cb, ck, d=SKETCH_DIM, metric=metric, m_valid=cm), 3)
+        c_plain = cuda_ms(lambda: topk_ops.topk_select_ref(
+            cq, cb, ck, d=SKETCH_DIM, metric=metric, m_valid=cm), 1)
+        c_bound, _ = bound(topk_bytes(cq.shape[0], cm, w, ck),
+                           topk_ops_needed(cq.shape[0], cm, w), rates)
+        chunks[metric] = {"queries": cq.shape[0], "rows": cb.shape[0],
+                          "m_valid": cm, "k": ck, "ms": c_ms,
+                          "plain_ms": c_plain, "bound_ms": c_bound}
+        log(f"[kernel:topk_select:{metric}:band_chunk] {cq.shape[0]} "
+            f"queries x {cb.shape[0]} rows ({cm} valid), k={ck}: "
+            f"bit-identical to the plain version, kernel {c_ms:.4f} ms, "
+            f"plain {c_plain:.4f} ms, bound {c_bound:.4f} ms")
+        qs = runs[metric]["q_sk"]
+        st = runs[metric]["alive"]
+        gv, gi = topk_ops.topk_select(qs, st, K, d=SKETCH_DIM, metric=metric)
+        wv, wi = topk_ops.topk_select_ref(qs, st, K, d=SKETCH_DIM,
+                                          metric=metric)
+        check(torch.equal(gi, wi), f"topk_select ids != plain ({metric})")
+        check(torch.equal(gv, wv), f"topk_select values != plain ({metric})")
+        errs.append(float((gv - wv).abs().max()))
+        ms.append(cuda_ms(lambda: topk_ops.topk_select(
+            qs, st, K, d=SKETCH_DIM, metric=metric), 3))
+        plain_ms.append(cuda_ms(lambda: topk_ops.topk_select_ref(
+            qs, st, K, d=SKETCH_DIM, metric=metric), 1, warmup=0))
+        log(f"[kernel:topk_select:{metric}] kernel {ms[-1]:.4f} ms, plain "
+            f"{plain_ms[-1]:.4f} ms")
+    nq = q_sk.shape[0]
+    record("topk_select", max(errs), ms[0], plain_ms[0],
+           topk_bytes(nq, n_alive, w, K), topk_ops_needed(nq, n_alive, w),
+           band_chunks=chunks)
+    return out
+
+
+def smoke(seed: int, device=torch.device("cuda")) -> None:
+    card = nvidia_smi()
+    name = torch.cuda.get_device_name(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[device] {name} x{torch.cuda.device_count()}, torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}; TF32 off for "
+        f"matmul and cuDNN")
+    log(f"[device] nvidia-smi: {card}")
+
+    t0 = time.perf_counter()
+    paths = build.build()
+    log(f"[build] {len(paths)} libraries in {time.perf_counter() - t0:.1f}s "
+        f"({', '.join(p.name for p in paths.values())})")
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    idx, val = pubmed_rows(N_ROWS, gen, device)
+    q_idx, q_val = pubmed_rows(N_TOPK_QUERIES, gen, device)
+    torch.cuda.synchronize()
+    nnz = (val != 0).sum(1).float()
+    log(f"[data] {N_ROWS} rows x {M_SLOTS} slots in "
+        f"{time.perf_counter() - t0:.1f}s, nnz mean {nnz.mean().item():.2f} "
+        f"min {int(nnz.min())} max {int(nnz.max())}")
+
+    rng = np.random.default_rng(seed)
+    build.reset_launches()
+    runs = {m: main_path(m, idx, val, q_idx, q_val, rng, card)
+            for m in ("cham", "hamming")}
+    launches = dict(build.LAUNCHES)
+    log(f"[main] kernel launches: {launches}")
+    for kernel, count in launches.items():
+        check(count > 0, f"kernel {kernel} was not launched on the main path")
+    log(f"[main] peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    rates = peak_rates()
+    kernels = kernel_phases(CabinParams.create(N_DIMS, SKETCH_DIM, seed=0),
+                            idx, val, runs, launches, rates)
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on a GPU",
+              file=sys.stderr)
+        return 2
+    smoke(args.seed)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
