@@ -13,31 +13,67 @@ Phases, each fatal on failure (exit code other than 0, no result line):
               card from --seed: n = 141,043 attributes, 47 categories,
               199 non-missing attributes per row on average (normal spread
               15%, clipped to [1, 298]), attributes drawn Zipf(1.1)
-              without replacement, padded COO of width 298.  d = 4096
-              (theory.sketch_dim(199) = 4017, rounded up).
+              without replacement, padded COO of width 298; and 4,096
+              more such rows as dense (4,096, 141,043) int32 rows, 0 =
+              missing (2.3 GB).  d = 4096 (theory.sketch_dim(199) = 4017,
+              rounded up).
  4. main    - the README quickstart path through the port's QueryEngine,
               once per metric ("cham", "hamming"): add_sparse of 524,288
-              rows in chunks of 16,384, remove 1%, compact, topk (k=10)
-              for 256 COO queries, radius for 64 queries at r = the median
-              10th-neighbour distance, pairwise for 64 queries against
-              4,096 ids.  Every answer is held against a brute-force scan
-              of the plain PyTorch versions on the card over the alive
-              rows: ids and distances must be equal, bit for bit, under
-              both metrics (the kernels and the plain versions read one
-              Cham table).  The launch counter of each kernel is set to 0
-              just before this phase and must have risen just after.  The
-              largest band-walk chunk each topk handed the top-k kernel
-              (pow2-padded rows, fewer of them valid) is kept.
- 5. kernels - each kernel against its plain version on the card, at the
-              shapes the main path gave it, bit for bit; the top-k kernel
-              also at the kept band-walk chunks.  Kernel time, plain time
-              and the bound: the largest of the bytes moved over 3.35 TB/s
-              (the H100 SXM's HBM rate), the 32-bit integer operations
-              over 64 per clock per SM, and the population counts over
-              16 per clock per SM (CUDA C++ Programming Guide, arithmetic
-              instruction throughput, compute capability 9.0), at this
-              card's SM count and maximum SM clock.
- 6. output  - the nvidia-smi line, one JSON line listing the kernels, and
+              rows in chunks of 16,384, add_dense of the 4,096 dense rows,
+              remove 1%, compact, topk (k=10) for 256 COO queries, radius
+              for 64 queries at r = the median 10th-neighbour distance,
+              pairwise for 64 queries against 4,096 ids.  Every answer is
+              held against a brute-force scan of the plain PyTorch
+              versions on the card over the alive rows: ids and distances
+              must be equal, bit for bit, under both metrics (the kernels
+              and the plain versions read one Cham table).  The launch
+              counts are set to 0 just before this phase and each index
+              kernel's must have risen just after.  The largest band-walk
+              chunk each topk handed the top-k kernel (pow2-padded rows,
+              fewer of them valid) is kept.
+ 5. lm      - llama3-8B at full width and depth (32 layers, d_model 4096,
+              32 heads / 8 KV heads, vocab 128,256, bf16), weights drawn on
+              the card from --seed (16 GB).  ServeEngine.generate answers 4
+              requests of 1,024 random prompt tokens, caches of 2,048
+              positions, 32 greedy new tokens: first through the flash
+              kernel (attention_impl None; the counts are set to 0 just
+              before and flash_attention must read 32, one per layer of
+              the one prefill, just after), then through the plain
+              attention (attention_impl "ref").  The prefill logits of the
+              two must agree to LOGIT_TOL, and each request's greedy
+              tokens up to the first step where the plain run's top-1 /
+              top-2 margin is under LOGIT_TOL; the logits each token was
+              chosen from must agree to LOGIT_TOL wherever the two paths
+              had the same tokens before it.  A short generate per path
+              warms up first.  Prefill seconds, decode tokens/s and peak
+              device memory are printed per path.  Layer by layer, each
+              of the kernel path's 32 prefill attention outputs is held
+              against the plain attention on the same inputs, within B6's
+              tolerance (2 bf16 ulps of each row's largest |value|).
+              Then three planted faults, each a generate through the plain
+              path with the causal mask off by one (query i also sees key
+              i + 1), in every layer, in the middle layer and in the last
+              layer alone: the per-layer check must flag exactly the
+              faulty layers, the end-to-end rule must reject the fault in
+              every layer, and its readings under each fault are printed
+              beside the sound ones.
+ 6. kernels - each kernel against its plain version on the card, at the
+              shapes the main path gave it: B1-B5 bit for bit (B2 also at
+              the kept band-walk chunks; B5 also against the sparse plain
+              version of the same rows), B6 on the prefill's first
+              attention inputs within 2 bf16 ulps of each row's largest
+              |value|, and again in float32 at batch 1 within 1e-5.
+              Kernel time, plain time and the bound: the largest of the
+              bytes moved over 3.35 TB/s (the H100 SXM's HBM rate), the
+              32-bit integer operations over 64 per clock per SM and the
+              population counts over 16 per clock per SM (CUDA C++
+              Programming Guide, arithmetic instruction throughput,
+              compute capability 9.0) at this card's SM count and maximum
+              SM clock, and bf16 flops over 989 TFLOP/s (data sheet).  For
+              B6 also the time of PyTorch's scaled_dot_product_attention
+              on the same inputs (library_ms, a yardstick the port never
+              calls).
+ 7. output  - the nvidia-smi line, one JSON line listing the kernels, and
               last the line {"ok": true, "device": {...}}.
 """
 
@@ -55,26 +91,50 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.configs.base import ParallelConfig  # noqa: E402
+from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import hashing, packing  # noqa: E402
 from repro_torch.core.cabin import CabinParams  # noqa: E402
 from repro_torch.core.cham import cham_from_table, cham_table  # noqa: E402
 from repro_torch.index import QueryEngine  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.cabin_build import ops as dense_ops  # noqa: E402
 from repro_torch.kernels.cabin_build_sparse import (  # noqa: E402
     ops as sparse_ops)
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.hamming import ops as hamming_ops  # noqa: E402
 from repro_torch.kernels.topk_select import ops as topk_ops  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.serve import ServeEngine  # noqa: E402
 
 # PubMed, the paper's Table 1 (repro/data/synthetic.py TABLE1["pubmed"])
 N_DIMS, N_CATEGORIES, DENSITY = 141043, 47, 199
 M_SLOTS = int(DENSITY * 1.5)  # 298, the reference sampler's COO width
 SKETCH_DIM = 4096
 N_ROWS = 524288  # rows ingested per engine: 256 MiB of sketches
+N_DENSE = 4096  # dense rows ingested per engine: 2.3 GB of int32
 CHUNK = 16384
 ZIPF_A = 1.1
 DRAWS = 1024  # Zipf draws per row; ~498 distinct on average, >= 298 needed
 K = 10
 N_TOPK_QUERIES, N_RADIUS_QUERIES, N_PAIRWISE_IDS = 256, 64, 4096
+INDEX_KERNELS = ("cabin_build", "cabin_build_sparse", "pair_stats",
+                 "row_popcount", "topk_select")
+
+# the LM phase: llama3-8B at full width and depth, 4 requests of 1,024
+# prompt tokens, caches of 2,048 positions, 32 greedy new tokens
+LM_ARCH = "llama3_8b"
+LM_BATCH, LM_PROMPT, LM_MAX_LEN, LM_NEW = 4, 1024, 2048, 32
+# End-to-end tolerance of the kernel LM path against the plain one
+# (attention_impl="ref"): the paths differ only in the attention's
+# float32 summation order, which moves a bf16-rounded attention output by
+# one ulp where it lies near a rounding boundary; 32 bf16 layers carry
+# such flips on.  Prefill logits must agree to LOGIT_TOL absolute, and
+# greedy tokens until the plain run's top-1 / top-2 margin falls under it.
+# It catches gross faults; a fault confined to one layer may read under
+# it, so each layer's attention is also held to B6's own tolerance.  The
+# planted faults of the lm phase print what both checks read.
+LOGIT_TOL = 0.25
 
 # H100 SXM HBM rate (NVIDIA data sheet, at 700 W), and the sm_90 issue
 # rates per clock per SM of 32-bit integer add / logic / shift / multiply
@@ -83,14 +143,20 @@ N_TOPK_QUERIES, N_RADIUS_QUERIES, N_PAIRWISE_IDS = 256, 64, 4096
 HBM_BYTES_PER_S = 3.35e12
 INT32_PER_CLOCK_SM = 64
 POPC_PER_CLOCK_SM = 16
+# dense bf16 tensor-core rate of the H100 SXM (NVIDIA data sheet, 700 W)
+BF16_FLOPS = 989e12
 
 REPLACES = {
+    "cabin_build": "src/repro/kernels/cabin_build/kernel.py:78",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:82",
     "cabin_build_sparse": "src/repro/kernels/cabin_build_sparse/kernel.py:83",
     "topk_select": "src/repro/kernels/topk_select/kernel.py:103",
     "pair_stats": "src/repro/kernels/hamming/kernel.py:70",
     "row_popcount": "src/repro/kernels/hamming/kernel.py:141",
 }
 SOURCES = {
+    "cabin_build": "src/repro_torch/kernels/csrc/cabin_build.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "cabin_build_sparse": "src/repro_torch/kernels/csrc/cabin_build_sparse.cu",
     "topk_select": "src/repro_torch/kernels/csrc/topk_select.cu",
     "pair_stats": "src/repro_torch/kernels/csrc/hamming.cu",
@@ -134,7 +200,7 @@ def peak_rates() -> dict:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     per_clock_sm = {"int32": INT32_PER_CLOCK_SM, "popc": POPC_PER_CLOCK_SM}
-    return {"sms": sms, "mhz": mhz, **{
+    return {"sms": sms, "mhz": mhz, "bf16": BF16_FLOPS, **{
         kind: n * sms * mhz * 1e6 for kind, n in per_clock_sm.items()}}
 
 
@@ -193,6 +259,16 @@ def pubmed_rows(n: int, gen: torch.Generator, device) -> tuple[torch.Tensor,
     return indices, values
 
 
+def dense_rows(idx: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
+    """The same rows as (n, 141,043) int32 dense categories, 0 = missing
+    (a row's attributes are distinct, so no slot overwrites another)."""
+    dense = torch.zeros((idx.shape[0], N_DIMS), dtype=torch.int32,
+                        device=idx.device)
+    row, slot = torch.nonzero(val, as_tuple=True)
+    dense[row, idx[row, slot].long()] = val[row, slot]
+    return dense
+
+
 # ---------------------------------------------------------------------------
 # brute force over the alive rows, with the plain versions
 # ---------------------------------------------------------------------------
@@ -235,7 +311,7 @@ def largest_band_chunk(call):
 
 
 def main_path(metric: str, idx: torch.Tensor, val: torch.Tensor,
-              q_idx: torch.Tensor, q_val: torch.Tensor,
+              dense: torch.Tensor, q_idx: torch.Tensor, q_val: torch.Tensor,
               rng: np.random.Generator, card: str) -> dict:
     """One engine through the quickstart path, checked against brute
     force.  Returns the queries' sketches, the alive store matrix and the
@@ -249,6 +325,13 @@ def main_path(metric: str, idx: torch.Tensor, val: torch.Tensor,
         engine.add_sparse(idx[r0:r0 + CHUNK], val[r0:r0 + CHUNK])
     torch.cuda.synchronize()
     ingest_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dense_ids = engine.add_dense(dense)
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t0
+    check(np.array_equal(dense_ids, np.arange(n, n + dense.shape[0])),
+          f"{metric}: dense ids")
+    n += dense.shape[0]
     check(len(engine) == n, f"{metric}: {len(engine)} rows after ingest")
 
     kill = rng.choice(engine.ids(), n // 100, replace=False)
@@ -306,13 +389,232 @@ def main_path(metric: str, idx: torch.Tensor, val: torch.Tensor,
     check(np.array_equal(pw, dist[:, torch.from_numpy(pos).to(dist.device)]
                          .cpu().numpy()),
           f"{metric}: pairwise differs from brute force")
-    log(f"[main:{metric}] ingest {n} rows {ingest_s:.3f}s "
-        f"({n / ingest_s:.1f} rows/s), layout {layout_s:.3f}s, "
+    n_sparse = n - dense.shape[0]
+    log(f"[main:{metric}] ingest {n_sparse} sparse rows {ingest_s:.3f}s "
+        f"({n_sparse / ingest_s:.1f} rows/s), {dense.shape[0]} dense rows "
+        f"{dense_s:.3f}s ({dense.shape[0] / dense_s:.1f} rows/s), layout "
+        f"{layout_s:.3f}s, "
         f"topk {N_TOPK_QUERIES} queries {topk_s:.3f}s "
         f"({N_TOPK_QUERIES / topk_s:.1f} queries/s), radius r={r:.4f} "
         f"{radius_s:.3f}s ({n_hits} hits), pairwise "
         f"{N_RADIUS_QUERIES}x{N_PAIRWISE_IDS} {pairwise_s:.3f}s [{card}]")
     return {"q_sk": q_sk, "alive": alive, "band_chunk": band_chunk}
+
+
+# ---------------------------------------------------------------------------
+# LM serving
+# ---------------------------------------------------------------------------
+
+
+def record_attention(call, n_layers: int, fault=None):
+    """Runs call() and returns its result and, for every attention call of
+    the run, clones of its (q, k, v), causal flag and output.  With
+    `fault`, the layers in fault[0] get the attention fault[1] in place of
+    the real one (a planted fault)."""
+    seen = []
+    real = flash_ops.attention
+
+    def spy(q, k, v, *, causal=True, impl=None):
+        if fault is not None and len(seen) % n_layers in fault[0]:
+            out = fault[1](q, k, v, causal=causal)
+        else:
+            out = real(q, k, v, causal=causal, impl=impl)
+        seen.append((q.clone(), k.clone(), v.clone(), causal, out.clone()))
+        return out
+
+    flash_ops.attention = spy
+    try:
+        result = call()
+    finally:
+        flash_ops.attention = real
+    check(len(seen) == n_layers, f"{len(seen)} attention calls, expected "
+          f"one per layer ({n_layers})")
+    return result, seen
+
+
+def layer_ratios(seen) -> list[float]:
+    """Each layer's attention output against the plain attention on the
+    same inputs, as max |diff| / the B6 tolerance (at most 1 holds)."""
+    return [flash_ops.tolerance_ratio(
+        out, flash_ops.attention_ref(q, k, v, causal=causal))
+        for q, k, v, causal, out in seen]
+
+
+def compare_lm(got, plain) -> dict:
+    """The end-to-end rule holding one LM run against the plain path's run:
+    prefill logits within LOGIT_TOL; the logits each token was chosen from
+    within LOGIT_TOL wherever both runs had the same tokens before it (up to
+    and including the first differing one); greedy tokens equal up to the
+    first step where the plain run's top-1 / top-2 margin is under
+    LOGIT_TOL.  Returns the readings and whether the rule holds."""
+    diff = float((got.prefill_logits - plain.prefill_logits).abs().max())
+    same_history, step_diff = 0, 0.0
+    for r in range(LM_BATCH):
+        differ = np.flatnonzero(got.tokens[r] != plain.tokens[r])
+        upto = LM_NEW if len(differ) == 0 else int(differ[0]) + 1
+        step_diff = max(step_diff, float((got.step_logits[r, :upto]
+                                          - plain.step_logits[r, :upto])
+                                         .abs().max()))
+        same_history += upto
+    top2 = plain.step_logits.topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).cpu().numpy()  # (B, LM_NEW)
+    compared, token_fault = [], None
+    for r in range(LM_BATCH):
+        steps = 0
+        for i in range(LM_NEW):
+            steps += 1
+            if margin[r, i] < LOGIT_TOL:
+                break  # near-tie: either token is right, paths may part
+            if got.tokens[r, i] != plain.tokens[r, i] and token_fault is None:
+                token_fault = (f"request {r} step {i}: token "
+                               f"{got.tokens[r, i]} != plain "
+                               f"{plain.tokens[r, i]} at margin "
+                               f"{margin[r, i]}")
+        compared.append(steps)
+    return {"ok": bool(diff <= LOGIT_TOL and step_diff <= LOGIT_TOL
+                       and token_fault is None),
+            "prefill_diff": diff,
+            "scale": float(plain.prefill_logits.abs().max()),
+            "step_diff": step_diff, "same_history": same_history,
+            "compared": compared, "token_fault": token_fault,
+            "same": int((got.tokens == plain.tokens).all(axis=1).sum())}
+
+
+def leaky_attention(q, k, v, *, causal=True):
+    """A planted fault: the plain attention with its causal mask off by one,
+    so that query i also sees key i + 1."""
+    s, dh = q.shape[2], q.shape[3]
+    group = q.shape[1] // k.shape[1]
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    scores = torch.matmul(q.float(), kf.transpose(-1, -2)) / (dh ** 0.5)
+    keep = (torch.arange(s, device=q.device)[:, None] + 1
+            >= torch.arange(k.shape[2], device=q.device)[None, :])
+    scores = torch.where(keep, scores, -1e30)
+    return torch.softmax(scores, dim=-1).matmul(vf).to(q.dtype)
+
+
+def planted_faults(cfg, params, prompts, plain) -> None:
+    """Shows what each check reads under a wrong attention: the plain path
+    with the causal mask off by one in every layer, in the middle layer and
+    in the last layer alone.  The per-layer check must flag every faulty
+    layer; the end-to-end rule must reject the fault in every layer and its
+    readings are printed for the other two."""
+    n = cfg.n_layers
+    for where, layers in (("every layer", range(n)),
+                          (f"the middle layer ({n // 2})", (n // 2,)),
+                          (f"the last layer ({n - 1})", (n - 1,))):
+        engine = ServeEngine(cfg, params, ParallelConfig(attention_impl="ref"))
+        res, seen = record_attention(
+            lambda: engine.generate(prompts, LM_NEW, LM_MAX_LEN,
+                                    keep_logits=True),
+            n, fault=(set(layers), leaky_attention))
+        ratios = layer_ratios(seen)
+        del seen
+        flagged = [i for i, r in enumerate(ratios) if r > 1]
+        reading = compare_lm(res, plain)
+        log(f"[lm:fault] causal mask off by one in {where}: per-layer "
+            f"check flags layers {flagged} (largest ratio to the B6 "
+            f"tolerance {max(ratios)}); end to end: prefill logits max "
+            f"|diff| {reading['prefill_diff']}, step logits max |diff| "
+            f"{reading['step_diff']} over {reading['same_history']} "
+            f"shared-history steps, first token fault "
+            f"{reading['token_fault']}; rejected end to end: "
+            f"{not reading['ok']}")
+        check(flagged == sorted(layers), f"the per-layer check flagged "
+              f"{flagged} for a planted fault in {sorted(layers)}")
+        if where == "every layer":
+            check(not reading["ok"], f"the end-to-end rule let a planted "
+                  f"fault ({where}) through: {reading}")
+
+
+def lm_phase(seed: int, card: str) -> tuple[tuple, dict]:
+    """llama3-8B served by the kernel path (attention_impl None: the flash
+    kernel on CUDA), then by the plain path (attention_impl "ref"), both
+    through ServeEngine.generate on one set of random weights, checked
+    against each other, end to end and layer by layer; then the planted
+    faults.  Returns the (q, k, v) of the kernel path's first attention
+    call and its launch counts."""
+    cfg = get_config(LM_ARCH)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = T.count_params(params)
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=gen, device="cuda", dtype=torch.int32)
+    log(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads, head_dim "
+        f"{cfg.resolved_head_dim}, {n_params} parameters in "
+        f"{cfg.precision.param_dtype}, drawn on the card in {init_s:.1f}s")
+    runs = {}
+    for path, impl in (("kernel", None), ("plain", "ref")):
+        engine = ServeEngine(cfg, params, ParallelConfig(attention_impl=impl))
+        # warm-up (libraries loaded, first-use costs paid), not measured
+        engine.generate(prompts[:1, :64], 2, 128)
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        res = engine.generate(prompts, LM_NEW, LM_MAX_LEN, keep_logits=True)
+        launches = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if path == "kernel":
+            # the same prefill once more, each attention's inputs and
+            # output copied for the per-layer check (outside the measured
+            # run, whose time and memory the copies would distort)
+            again, seen = record_attention(lambda: engine.generate(
+                prompts, 1, LM_MAX_LEN, keep_logits=True), cfg.n_layers)
+            rerun_diff = float((again.prefill_logits
+                                - res.prefill_logits).abs().max())
+            ratios = layer_ratios(seen)
+            qkv = seen[0]
+            del seen, again
+        check(res.tokens.shape == (LM_BATCH, LM_NEW), f"{path}: tokens")
+        check(bool(torch.isfinite(res.prefill_logits).all()),
+              f"{path}: prefill logits not finite")
+        check(bool(torch.isfinite(res.step_logits).all()),
+              f"{path}: step logits not finite")
+        want = {k: 0 for k in launches}
+        if path == "kernel":
+            want["flash_attention"] = cfg.n_layers  # one prefill
+        check(launches == want, f"{path}: kernel launches {launches}, "
+              f"expected {want}")
+        runs[path] = res
+        if path == "kernel":
+            kernel_launches = launches
+        log(f"[lm:{path}] prefill {LM_BATCH} x {LM_PROMPT} tokens "
+            f"{res.prefill_s:.3f}s ({LM_BATCH * LM_PROMPT / res.prefill_s:.1f}"
+            f" tokens/s), decode {LM_NEW} steps {res.decode_s:.3f}s "
+            f"({LM_BATCH * LM_NEW / res.decode_s:.1f} tokens/s), peak device "
+            f"memory {peak:.2f} GiB, launches {launches} [{card}]")
+
+    reading = compare_lm(runs["kernel"], runs["plain"])
+    check(reading["ok"], f"the kernel LM path disagrees with the plain one: "
+          f"{reading}")
+    log(f"[lm] kernel vs plain path: prefill logits max |diff| "
+        f"{reading['prefill_diff']} (tolerance {LOGIT_TOL}; largest |logit| "
+        f"{reading['scale']}); greedy tokens compared for "
+        f"{reading['compared']} steps per request (up to the first plain "
+        f"top-1/top-2 margin under {LOGIT_TOL}); {reading['same']} of "
+        f"{LM_BATCH} requests identical over all {LM_NEW} tokens; step "
+        f"logits max |diff| {reading['step_diff']} over the "
+        f"{reading['same_history']} steps whose earlier tokens the paths "
+        f"shared")
+    worst = int(np.argmax(ratios))
+    check(max(ratios) <= 1, f"the flash kernel in layer {worst} differs "
+          f"from the plain attention on its inputs by {ratios[worst]} of "
+          f"the tolerance")
+    log(f"[lm] per layer, each prefill attention output of the kernel path "
+        f"against the plain attention on the same inputs: largest ratio to "
+        f"the B6 tolerance {ratios[worst]} (layer {worst}), layer 0 "
+        f"{ratios[0]}; the recorded prefill's logits differ from the "
+        f"measured one's by {rerun_diff}")
+    q, k, v, causal, _ = qkv
+    check(causal, "the prefill attention is causal")
+    planted_faults(cfg, params, prompts, runs["plain"])
+    return (q, k, v), kernel_launches
 
 
 # ---------------------------------------------------------------------------
@@ -334,24 +636,27 @@ def topk_bytes(nq: int, m: int, w: int, k: int) -> int:
 
 
 def kernel_phases(params: CabinParams, idx: torch.Tensor, val: torch.Tensor,
-                  runs: dict, launches: dict, rates: dict) -> list[dict]:
+                  dense: torch.Tensor, runs: dict, qkv: tuple,
+                  launches: dict, rates: dict) -> list[dict]:
     out = []
     w = packing.packed_width(SKETCH_DIM)
     rate_text = (f"HBM 3.35e12 B/s; int32 {rates['int32']:.4g} op/s, popc "
                  f"{rates['popc']:.4g} op/s at {rates['sms']} SMs x "
-                 f"{rates['mhz']:.0f} MHz")
+                 f"{rates['mhz']:.0f} MHz; bf16 {rates['bf16']:.4g} flop/s")
 
-    def record(name, err, ms, plain_ms, n_bytes, ops, **extra):
+    def record(name, err, ms, plain_ms, n_bytes, ops, library_ms=None,
+               tolerance="0: bit-identical to the plain version", **extra):
         b_ms, b_by = bound(n_bytes, ops, rates)
         out.append({"name": name, "route": "cuda", "source": SOURCES[name],
                     "replaces": REPLACES[name], "launches": launches[name],
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                    **extra})
-        log(f"[kernel:{name}] max_abs_err {err} (tolerance 0: bit-identical"
-            f" to the plain version) kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
-            f"{n_bytes:.0f} bytes, operations {ops}; {rate_text})")
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": library_ms, **extra})
+        lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
+        log(f"[kernel:{name}] max_abs_err {err} (tolerance {tolerance}) "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, bound "
+            f"{b_ms:.4f} ms ({b_by}: {n_bytes:.0f} bytes, operations {ops};"
+            f" {rate_text})")
 
     # B1: one ingest chunk, (16384, 298) COO -> (16384, 128)
     ci, cv = idx[:CHUNK].contiguous(), val[:CHUNK].contiguous()
@@ -446,6 +751,70 @@ def kernel_phases(params: CabinParams, idx: torch.Tensor, val: torch.Tensor,
     record("topk_select", max(errs), ms[0], plain_ms[0],
            topk_bytes(nq, n_alive, w, K), topk_ops_needed(nq, n_alive, w),
            band_chunks=chunks)
+
+    # B5: the dense ingest, 4,096 x 141,043 -> (4,096, 128), also equal to
+    # the sparse plain version of the same rows
+    got = dense_ops.cabin_build(dense, **kw)
+    torch.cuda.synchronize()
+
+    def dense_plain():  # in row blocks: the int64 hashing of 577 M values
+        return torch.cat([dense_ops.cabin_build_ref(dense[r:r + 512], **kw)
+                          for r in range(0, dense.shape[0], 512)])
+
+    check(torch.equal(got, dense_plain()), "cabin_build != plain version")
+    d_idx, d_val = runs["dense_coo"]
+    check(torch.equal(got, sparse_ops.cabin_build_sparse_ref(
+        d_idx, d_val, **kw)), "dense and sparse sketches of one row differ")
+    nd = dense.shape[0]
+    live = int((dense != 0).sum())
+    psi_hits = int(hashing.psi_bits(d_idx, d_val, params.psi_seed).sum())
+    record("cabin_build", 0,
+           cuda_ms(lambda: dense_ops.cabin_build(dense, **kw), 10),
+           cuda_ms(dense_plain, 1),
+           # every category read once, every sketch word written
+           dense.numel() * 4 + nd * w * 4,
+           # a zero test per value, then as B1: 22 per live value (psi)
+           # and 14 where psi is 1 (pi and the OR)
+           {"int32": dense.numel() + live * 22 + psi_hits * 14})
+
+    # B6: the prefill's first attention call, (4, 32 / 8, 1024, 128) bf16
+    # causal; then float32 at batch 1 to the float32 tolerance
+    q, k, v = qkv
+    b, hq, s, dh = q.shape
+    skv, dv = k.shape[2], v.shape[3]
+    got = flash_ops.flash_attention(q, k, v, causal=True)
+    want = flash_ops.attention_ref(q, k, v, causal=True)
+    ratio = flash_ops.tolerance_ratio(got, want)
+    err = float((got.float() - want.float()).abs().max())
+    check(ratio <= 1.0, f"flash_attention bf16: {ratio} x the tolerance")
+    q32, k32, v32 = (t[:1].float().contiguous() for t in (q, k, v))
+    got32 = flash_ops.flash_attention(q32, k32, v32, causal=True)
+    want32 = flash_ops.attention_ref(q32, k32, v32, causal=True)
+    ratio32 = flash_ops.tolerance_ratio(got32, want32)
+    err32 = float((got32 - want32).abs().max())
+    check(ratio32 <= 1.0, f"flash_attention f32: {ratio32} x the tolerance")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_err = float((sdpa(q, k, v, is_causal=True, enable_gqa=True).float()
+                     - want.float()).abs().max())
+    f32_ms = cuda_ms(lambda: flash_ops.flash_attention(
+        q32, k32, v32, causal=True), 5)
+    log(f"[kernel:flash_attention:f32] (1, {hq}, {s}, {dh}) float32: "
+        f"max_abs_err {err32} ({ratio32:.4f} x the tolerance 1e-5), kernel "
+        f"{f32_ms:.4f} ms; bf16 at the main shape {ratio:.4f} x its "
+        f"tolerance; SDPA against the plain version: max |diff| {lib_err}")
+    elem = q.element_size()
+    record("flash_attention", err,
+           cuda_ms(lambda: flash_ops.flash_attention(q, k, v, causal=True),
+                   10),
+           cuda_ms(lambda: flash_ops.attention_ref(q, k, v, causal=True), 3),
+           (q.numel() + k.numel() + v.numel() + b * hq * s * dv) * elem,
+           # QK^T and PV, 2 flops per multiply-add, half of them causal
+           {"bf16": 4 * b * hq * s * skv * dh * 0.5},
+           library_ms=cuda_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                           enable_gqa=True), 10),
+           tolerance="2 bf16 ulps of each row's largest |value|",
+           tolerance_ratio=ratio, f32_max_abs_err=err32,
+           f32_tolerance_ratio=ratio32)
     return out
 
 
@@ -469,26 +838,36 @@ def smoke(seed: int, device=torch.device("cuda")) -> None:
     t0 = time.perf_counter()
     idx, val = pubmed_rows(N_ROWS, gen, device)
     q_idx, q_val = pubmed_rows(N_TOPK_QUERIES, gen, device)
+    d_idx, d_val = pubmed_rows(N_DENSE, gen, device)
+    dense = dense_rows(d_idx, d_val)
     torch.cuda.synchronize()
     nnz = (val != 0).sum(1).float()
-    log(f"[data] {N_ROWS} rows x {M_SLOTS} slots in "
-        f"{time.perf_counter() - t0:.1f}s, nnz mean {nnz.mean().item():.2f} "
-        f"min {int(nnz.min())} max {int(nnz.max())}")
+    log(f"[data] {N_ROWS} rows x {M_SLOTS} slots and {N_DENSE} dense rows x "
+        f"{N_DIMS} in {time.perf_counter() - t0:.1f}s, nnz mean "
+        f"{nnz.mean().item():.2f} min {int(nnz.min())} max "
+        f"{int(nnz.max())}; dense nnz mean "
+        f"{(dense != 0).sum(1).float().mean().item():.2f}")
 
     rng = np.random.default_rng(seed)
     build.reset_launches()
-    runs = {m: main_path(m, idx, val, q_idx, q_val, rng, card)
+    runs = {m: main_path(m, idx, val, dense, q_idx, q_val, rng, card)
             for m in ("cham", "hamming")}
     launches = dict(build.LAUNCHES)
     log(f"[main] kernel launches: {launches}")
-    for kernel, count in launches.items():
-        check(count > 0, f"kernel {kernel} was not launched on the main path")
+    for kernel in INDEX_KERNELS:
+        check(launches[kernel] > 0,
+              f"kernel {kernel} was not launched on the index path")
     log(f"[main] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    runs["dense_coo"] = (d_idx, d_val)
+
+    qkv, lm_launches = lm_phase(seed, card)
+    launches["flash_attention"] = lm_launches["flash_attention"]
+    torch.cuda.empty_cache()
 
     rates = peak_rates()
     kernels = kernel_phases(CabinParams.create(N_DIMS, SKETCH_DIM, seed=0),
-                            idx, val, runs, launches, rates)
+                            idx, val, dense, runs, qkv, launches, rates)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,10 +6,10 @@ words.  Same seeds, mappings and packed layout as the JAX package's
 `repro.core.cabin`, for every d (the JAX kernel's d % 128 rule is a TPU
 lane contract and does not apply here).
 
-Two input layouts:
-  * dense:  x (N, n) int32, 0 = missing feature (plain tensor code);
-  * sparse: padded COO (indices (N, m), values (N, m)), value 0 = pad.
-    On a CUDA tensor this launches the sparse Cabin kernel
+Two input layouts, each sketched by a kernel on a CUDA tensor and by its
+plain version (BinEm then BinSketch, as below) on a CPU tensor:
+  * dense:  x (N, n) int32, 0 = missing feature (`kernels.cabin_build`);
+  * sparse: padded COO (indices (N, m), values (N, m)), value 0 = pad
     (`kernels.cabin_build_sparse`).
 """
 
@@ -69,8 +69,16 @@ def binsketch(params: CabinParams, bits: torch.Tensor) -> torch.Tensor:
 
 
 def sketch_dense(params: CabinParams, x: torch.Tensor) -> torch.Tensor:
-    """Cabin on dense categorical rows -> packed sketches (..., w) int32."""
-    return binsketch(params, binem(params, x))
+    """Cabin on dense categorical rows (..., n) int32 -> packed sketches
+    (..., w) int32.  A CUDA tensor launches the dense Cabin kernel; a CPU
+    tensor takes its plain version, `binsketch(binem(x))`."""
+    from repro_torch.kernels.cabin_build import ops
+
+    n = x.shape[-1]
+    out = ops.cabin_build(x.reshape(-1, n).contiguous(),
+                          d=params.sketch_dim, psi_seed=params.psi_seed,
+                          pi_seed=params.pi_seed)
+    return out.reshape(*x.shape[:-1], params.packed_width)
 
 
 def sketch_sparse(params: CabinParams, indices: torch.Tensor,

@@ -34,8 +34,8 @@ from repro_torch.core import packing
 from repro_torch.core.cabin import CabinParams, sketch_dense, sketch_sparse
 from repro_torch.index import partition
 from repro_torch.index.partition import PartitionSet
-from repro_torch.index.store import (SketchSpec, SketchStore,
-                                     resolve_device)
+from repro_torch.device import resolve_device
+from repro_torch.index.store import SketchSpec, SketchStore
 
 _METRICS = ("cham", "hamming")
 

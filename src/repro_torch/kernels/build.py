@@ -3,9 +3,14 @@
 Each `csrc/<name>.cu` becomes one shared library with a plain C interface
 (`nvcc -shared`, no PyTorch headers, so a build takes seconds), placed in
 `build/repro_torch/` at the root of the checkout under a name that carries
-the hash of its sources and flags: a changed source builds anew, an
-unchanged one loads at once.  `build()` starts one nvcc per missing source,
-all together, and waits for them.
+the hash of its sources and its own flags: a changed source or flag builds
+anew, an unchanged one loads at once.  `build()` starts one nvcc per
+missing source, all together, and waits for them.
+
+`hamming`, `topk_select` and `cabin_build_sparse` build with
+`--fmad=false`, so that no float multiply-add is contracted into an FMA
+and their floats stay bit-identical to their plain versions; flash
+attention, held at a tolerance, may contract.
 
 Nothing here gives up quietly: a missing nvcc, a failed compile or a failed
 launch raises RuntimeError with the compiler's output or the CUDA error.
@@ -28,14 +33,19 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("cabin_build_sparse", "hamming", "topk_select")
+SOURCES = ("cabin_build", "cabin_build_sparse", "flash_attention", "hamming",
+           "topk_select")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC")
+# per-source flags added to NVCC_FLAGS
+EXTRA_FLAGS = {"cabin_build_sparse": ("--fmad=false",),
+               "hamming": ("--fmad=false",),
+               "topk_select": ("--fmad=false",)}
 # the toolkit's standard install location, tried after CUDA_HOME and PATH
 DEFAULT_CUDA_HOME = Path("/usr/local/cuda")
 
-LAUNCHES = {"cabin_build_sparse": 0, "pair_stats": 0, "row_popcount": 0,
-            "topk_select": 0}
+LAUNCHES = {"cabin_build": 0, "cabin_build_sparse": 0, "flash_attention": 0,
+            "pair_stats": 0, "row_popcount": 0, "topk_select": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}
@@ -62,9 +72,14 @@ def find_nvcc() -> str:
         f"{DEFAULT_CUDA_HOME}/bin): the CUDA kernels cannot be built")
 
 
+def nvcc_flags(name: str) -> tuple[str, ...]:
+    """The nvcc flags of `csrc/<name>.cu`."""
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
     """Where the built library for `csrc/<name>.cu` lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(nvcc_flags(name)).encode())
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
@@ -82,7 +97,8 @@ def build(names=SOURCES) -> dict[str, Path]:
     procs = []
     for name, out in todo.items():
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *nvcc_flags(name), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs.append((name, tmp, out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     errors = []

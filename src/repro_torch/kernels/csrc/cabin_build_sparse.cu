@@ -36,12 +36,8 @@ __global__ void cabin_sparse_kernel(const int32_t* __restrict__ indices,
     const uint32_t v = static_cast<uint32_t>(val[k]);
     if (v == 0u) continue;  // padding / missing: psi(i, 0) = 0
     const uint32_t a = static_cast<uint32_t>(idx[k]);
-    // psi(a, v) = hash2_u32(a, v, psi_seed) & 1
-    const uint32_t hx = repro::mix32(a + psi_key);
-    const uint32_t h2 = repro::mix32(hx ^ (v * repro::kM3 + (hx >> 7)));
-    if (h2 & 1u) {
-      // pi(a) = hash_u32(a, pi_seed) mod d, unsigned
-      const uint32_t bucket = repro::mix32(a + pi_key) % static_cast<uint32_t>(d);
+    if (repro::psi_bit(a, v, psi_key)) {
+      const uint32_t bucket = repro::pi_bucket(a, pi_key, static_cast<uint32_t>(d));
       atomicOr(&bitmap[bucket >> 5], 1u << (bucket & 31u));
     }
   }

@@ -34,6 +34,17 @@ __device__ __forceinline__ uint32_t seed_key(uint32_t seed) {
   return mix32(seed * kM3);
 }
 
+// psi(a, v) = hash2_u32(a, v, psi_seed) & 1, with psi_key = seed_key(psi_seed)
+__device__ __forceinline__ uint32_t psi_bit(uint32_t a, uint32_t v, uint32_t psi_key) {
+  const uint32_t hx = mix32(a + psi_key);
+  return mix32(hx ^ (v * kM3 + (hx >> 7))) & 1u;
+}
+
+// pi(a) = hash_u32(a, pi_seed) mod d, unsigned, with pi_key = seed_key(pi_seed)
+__device__ __forceinline__ uint32_t pi_bucket(uint32_t a, uint32_t pi_key, uint32_t d) {
+  return mix32(a + pi_key) % d;
+}
+
 __device__ __forceinline__ int warp_sum(int v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;

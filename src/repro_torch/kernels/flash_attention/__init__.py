@@ -1,0 +1,4 @@
+from repro_torch.kernels.flash_attention.ops import (  # noqa: F401
+    attention, flash_attention)
+from repro_torch.kernels.flash_attention.ref import (  # noqa: F401
+    attention_ref, chunked_attention)

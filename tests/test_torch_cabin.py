@@ -2,7 +2,10 @@
 sketches are bit-identical for every d (the port has no d % 128 rule).
 
 The sparse oracle is `sketch_sparse_jnp`, reached jitted through
-`sketch_sparse_jit` (which takes the jnp path off the TPU)."""
+`sketch_sparse_jit` (which takes the jnp path off the TPU).  The dense
+kernel's plain version is held against the Pallas `cabin_build` in
+interpret mode where that kernel takes d (d % 128 == 0), and against
+`cabin_build_ref` for every other d."""
 
 import importlib
 
@@ -11,7 +14,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.cabin_build.kernel import cabin_build as jcabin_build
+from repro.kernels.cabin_build.ref import cabin_build_ref as jcabin_build_ref
 from repro.kernels.cabin_build_sparse.kernel import cabin_build_sparse
+from repro_torch.kernels import build
+from repro_torch.kernels.cabin_build import ops as dense_ops
 from repro_torch.kernels.cabin_build_sparse import ops as sparse_ops
 
 jcabin = importlib.import_module("repro.core.cabin")
@@ -99,3 +106,46 @@ def test_dense_and_sparse_sketches_agree():
         tcabin.sketch_sparse(p, torch.from_numpy(idx),
                              torch.from_numpy(val)).numpy(),
         tcabin.sketch_dense(p, torch.from_numpy(x)).numpy())
+
+
+def _dense_rows(seed, n_rows=13, n=700):
+    """Dense rows with missing values (0), a row of nothing but missing
+    values, negative and large categories."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 9, size=(n_rows, n)).astype(np.int32)
+    x[rng.random(x.shape) < 0.6] = 0
+    x[0] = 0
+    x[1, :5] = [-1, -7, 2**31 - 1, -(2**31), 1]
+    return x
+
+
+@pytest.mark.parametrize("d", [128, 256, 1024])
+def test_dense_plain_version_matches_pallas_kernel_in_interpret_mode(d):
+    x = _dense_rows(d)
+    p = tcabin.CabinParams.create(x.shape[1], d, seed=5)
+    kw = dict(d=d, psi_seed=p.psi_seed, pi_seed=p.pi_seed)
+    want = np.asarray(jcabin_build(jnp.asarray(x), bm=8, bd=128, bk=128,
+                                   interpret=True, **kw))
+    got = dense_ops.cabin_build_ref(torch.from_numpy(x), **kw)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("d", [1, 31, 200, 4097])
+def test_dense_plain_version_matches_reference_for_every_d(d):
+    x = _dense_rows(d + 1)
+    kw = dict(d=d, psi_seed=0x7FFFFFFF, pi_seed=12345)
+    want = np.asarray(jcabin_build_ref(jnp.asarray(x), **kw))
+    got = dense_ops.cabin_build_ref(torch.from_numpy(x), **kw)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_dense_wrapper_on_the_cpu_is_the_plain_version_uncounted():
+    x = torch.from_numpy(_dense_rows(3))
+    kw = dict(d=300, psi_seed=4, pi_seed=9)
+    before = dict(build.LAUNCHES)
+    assert torch.equal(dense_ops.cabin_build(x, **kw),
+                       dense_ops.cabin_build_ref(x, **kw))
+    assert build.LAUNCHES == before
+    with pytest.raises(ValueError, match="d="):
+        dense_ops.cabin_build(x, d=0, psi_seed=0, pi_seed=0)

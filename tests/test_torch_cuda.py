@@ -1,9 +1,17 @@
 """The CUDA kernels against their plain versions on the card, at edge
 shapes the main path of chip_smoke.py does not reach: every d and word
 count, k at each kernel template's edges and above the valid rows, ties,
-tables too large for shared memory, ragged tiles.  Also one engine
-history on CUDA against the same history on the CPU, which must agree bit
-for bit (both read the same Cham table).
+tables too large for shared memory, ragged tiles; for flash attention
+S = 1 and S around the 64-row tile, Skv != S, GQA groups 1 to 8, head
+dims 16 to 256 and Dh_v != Dh, in bfloat16 and float32 (within the
+stated tolerance, `repro_torch.kernels.flash_attention.ref.tolerance`).  Also one index engine history and
+one LM generation on CUDA against the same on the CPU: the index answers
+agree bit for bit (both read the same Cham table), the LM's greedy tokens
+are equal and its float32 logits agree to 1e-4 (summation order), or to
+1e-3 with an int8 KV cache: quantisation is discontinuous, so a K/V value
+within float32 noise of a rounding step lands one int8 level (1/127 of
+its row's largest |value|) apart on the two devices (measured on an H100:
+1.2e-4 on 1 of 9,216 logits).
 
 These tests need a CUDA device and nvcc; they are marked `cuda` and skip
 elsewhere.  On a machine with a card:
@@ -15,10 +23,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.base import ParallelConfig, reduced_for_smoke
+from repro_torch.configs.registry import get_config
 from repro_torch.core.cabin import CabinParams
 from repro_torch.index import QueryEngine
 from repro_torch.kernels import build
+from repro_torch.kernels.cabin_build import ops as dense_ops
 from repro_torch.kernels.cabin_build_sparse import ops as sparse_ops
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.models import transformer as T
+from repro_torch.serve import ServeEngine
 from repro_torch.kernels.hamming import ops as hamming_ops
 from repro_torch.kernels.topk_select import ops as topk_ops
 
@@ -29,6 +43,8 @@ pytestmark = pytest.mark.cuda
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -97,9 +113,92 @@ def test_topk_select_cap(dev):
         topk_ops.topk_select(q, q, topk_ops.MAX_K + 1, d=128)
 
 
+@pytest.mark.parametrize("d", [1, 31, 4096, 4097, sparse_ops.MAX_D])
+def test_cabin_build_dense_every_d(dev, d):
+    rng = np.random.default_rng(d % 1000)
+    x = rng.integers(-3, 50, size=(7, 5000)).astype(np.int32)
+    x[rng.random(x.shape) < 0.7] = 0
+    x[0] = 0
+    x[1, :3] = [2**31 - 1, -(2**31), -1]
+    x[2:7] = 0  # rows holding only the last, or only the first, attribute
+    x[2:6, -1] = [1, 2, 3, 4]
+    x[6, 0] = 5
+    xt = torch.from_numpy(x).to(dev)
+    kw = dict(d=d, psi_seed=0x7FFFFFFF, pi_seed=12345)
+    got = dense_ops.cabin_build(xt, **kw)
+    assert torch.equal(got, dense_ops.cabin_build_ref(xt, **kw))
+    if d == sparse_ops.MAX_D:
+        with pytest.raises(ValueError):
+            dense_ops.cabin_build(xt, d=d + 1, psi_seed=0, pi_seed=0)
+
+
+# (b, hq, hkv, s, skv, dh, dv, causal)
+FLASH_CASES = [
+    (1, 1, 1, 1, 1, 16, 16, True),
+    (1, 2, 2, 1, 300, 128, 128, False),
+    (2, 4, 1, 63, 63, 64, 64, True),
+    (1, 8, 1, 65, 65, 128, 128, True),
+    (1, 8, 8, 1000, 1000, 128, 128, True),
+    (1, 4, 4, 65, 200, 256, 256, False),
+    (2, 8, 2, 100, 37, 64, 32, False),
+    (1, 4, 1, 130, 130, 16, 48, True),
+    (1, 16, 2, 77, 77, 80, 80, True),
+    (1, 4, 2, 70, 129, 256, 16, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bfloat16", "float32"])
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_flash_attention_edges(dev, case, dtype):
+    b, hq, hkv, s, skv, dh, dv, causal = case
+    gen = torch.Generator(device=dev).manual_seed(s * 7 + dh)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+               for shape in ((b, hq, s, dh), (b, hkv, skv, dh),
+                             (b, hkv, skv, dv)))
+    got = flash_ops.flash_attention(q, k, v, causal=causal)
+    want = flash_ops.attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (b, hq, s, dv)
+    assert flash_ops.tolerance_ratio(got, want) <= 1.0
+
+
+def test_flash_attention_refuses_mixed_devices(dev):
+    q = torch.zeros((1, 2, 4, 16), device=dev)
+    with pytest.raises(ValueError, match="devices"):
+        flash_ops.flash_attention(q, q.cpu(), q)
+
+
+def _to(tree, device):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return [_to(v, device) for v in tree]
+
+
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8"])
+def test_serve_engine_on_cuda_equals_the_cpu(dev, kv_dtype):
+    cfg = reduced_for_smoke(get_config("llama3_8b"))
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    prompts = np.random.default_rng(0).integers(3, cfg.vocab_size, (3, 70))
+    pcfg = ParallelConfig(kv_cache_dtype=kv_dtype)
+    runs = [ServeEngine(cfg, _to(params, d), pcfg, device=d).generate(
+        prompts, 6, 80, keep_logits=True) for d in ("cpu", dev)]
+    np.testing.assert_array_equal(runs[0].tokens, runs[1].tokens)
+    tol = 1e-3 if kv_dtype == "int8" else 1e-4
+    for name in ("prefill_logits", "step_logits"):
+        torch.testing.assert_close(getattr(runs[1], name).cpu(),
+                                   getattr(runs[0], name), rtol=tol, atol=tol)
+
+
 def test_each_wrapper_counts_one_launch_per_call(dev):
     x = _words(np.random.default_rng(0), 8, 4, dev)
     before = dict(build.LAUNCHES)
+    dense_ops.cabin_build(x, d=64, psi_seed=1, pi_seed=2)
+    qf = torch.zeros((1, 2, 4, 16), device=dev)
+    flash_ops.flash_attention(qf, qf, qf)
     sparse_ops.cabin_build_sparse(x, x, d=64, psi_seed=1, pi_seed=2)
     hamming_ops.pair_stats(x, x)
     hamming_ops.row_popcount(x)

@@ -4,21 +4,29 @@
   * entry points run on CUDA unless asked for the CPU, and refuse CUDA
     where there is none, with no quiet fallback;
   * the kernel loader raises when nvcc is missing, never returns None;
-  * each kernel wrapper refuses tensors its kernel does not take.
+  * each kernel wrapper refuses tensors its kernel does not take, and
+    asking for the attention kernel on the CPU raises.
 """
 
 import ast
 import inspect
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from repro_torch import convert
+from repro_torch.configs.base import ParallelConfig, reduced_for_smoke
+from repro_torch.configs.registry import get_config
 from repro_torch.core import CabinParams
 from repro_torch.index import QueryEngine, SketchStore
 from repro_torch.kernels import build
+from repro_torch.kernels.cabin_build import ops as dense_ops
 from repro_torch.kernels.cabin_build_sparse import ops as sparse_ops
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.models import transformer as T
+from repro_torch.serve import ServeEngine
 from repro_torch.kernels.hamming import ops as hamming_ops
 from repro_torch.kernels.topk_select import ops as topk_ops
 
@@ -72,7 +80,9 @@ def test_import_scan_catches_forbidden_forms(tmp_path):
 
 def test_entry_points_default_to_cuda():
     for fn in (QueryEngine.__init__, SketchStore.__init__,
-               convert.store_from_reference):
+               convert.store_from_reference, ServeEngine.__init__,
+               T.init_params, T.init_caches,
+               convert.lm_params_from_reference):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
@@ -84,6 +94,32 @@ def test_engine_without_device_raises_where_cuda_is_absent(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         SketchStore(64)
     assert len(QueryEngine(params, device="cpu")) == 0
+
+
+def test_lm_entry_points_raise_where_cuda_is_absent(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced_for_smoke(get_config("llama3_8b"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        T.init_params(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        T.init_caches(cfg, 1, 8)
+    params = T.init_params(cfg, torch.Generator(), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServeEngine(cfg, params)
+    assert ServeEngine(cfg, params, device="cpu").generate(
+        np.ones((1, 3), np.int32), 2, 5).tokens.shape == (1, 2)
+
+
+def test_attention_kernel_on_the_cpu_raises():
+    cfg = reduced_for_smoke(get_config("llama3_8b"))
+    params = T.init_params(cfg, torch.Generator(), device="cpu")
+    tokens = torch.ones((1, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        T.forward(cfg, params, {"tokens": tokens},
+                  ParallelConfig(attention_impl="kernel"))
+    for impl in (None, "chunked", "ref"):
+        T.forward(cfg, params, {"tokens": tokens},
+                  ParallelConfig(attention_impl=impl))
 
 
 def test_loader_raises_without_nvcc(monkeypatch, tmp_path):
@@ -100,12 +136,30 @@ def test_loader_raises_without_nvcc(monkeypatch, tmp_path):
     assert not (tmp_path / "build").exists()
 
 
+def test_per_source_nvcc_flags(monkeypatch):
+    """The bit-identical kernels keep --fmad=false; the rest may contract,
+    and a source's own flags are part of its library's name."""
+    for name in build.SOURCES:
+        strict = name in ("cabin_build_sparse", "hamming", "topk_select")
+        assert ("--fmad=false" in build.nvcc_flags(name)) == strict, name
+        assert set(build.NVCC_FLAGS) <= set(build.nvcc_flags(name))
+    assert set(build.SOURCES) == {p.stem for p in build.CSRC.glob("*.cu")}
+    before = {n: build.library_path(n) for n in build.SOURCES}
+    monkeypatch.setitem(build.EXTRA_FLAGS, "flash_attention", ("-lineinfo",))
+    after = {n: build.library_path(n) for n in build.SOURCES}
+    assert [n for n in build.SOURCES if before[n] != after[n]] == [
+        "flash_attention"]
+
+
 def _i32(*shape):
     return torch.arange(int(torch.tensor(shape).prod()),
                         dtype=torch.int32).reshape(shape)
 
 
 WRAPPERS = {
+    "cabin_build": lambda a, b: (
+        dense_ops.cabin_build(a, d=64, psi_seed=1, pi_seed=2),
+        dense_ops.cabin_build(b, d=64, psi_seed=1, pi_seed=2)),
     "cabin_build_sparse": lambda a, b: sparse_ops.cabin_build_sparse(
         a, b, d=64, psi_seed=1, pi_seed=2),
     "pair_stats": lambda a, b: hamming_ops.pair_stats(a, b),
@@ -151,3 +205,40 @@ def test_topk_select_kernel_cap_is_enforced_only_for_the_kernel():
     q, b = _i32(2, 3), _i32(300, 3)
     vals, idxs = topk_ops.topk_select(q, b, topk_ops.MAX_K + 1, d=96)
     assert vals.shape == (2, topk_ops.MAX_K + 1)
+
+
+def _f32(*shape, dtype=torch.float32):
+    return torch.zeros(shape, dtype=dtype)
+
+
+@pytest.mark.parametrize("bad,match", [
+    (lambda q: (q.to(torch.float16), q, q), "bfloat16 or float32"),
+    (lambda q: (q.to(torch.int32), q, q), "bfloat16 or float32"),
+    (lambda q: (q, q.to(torch.bfloat16), q), "mixed dtypes"),
+    (lambda q: (q.transpose(2, 3), q, q), "contiguous"),
+    (lambda q: (q.to("meta"), q.to("meta"), q.to("meta")), "device"),
+    (lambda q: (q[0], q, q), "4-d"),
+    (lambda q: (_f32(1, 3, 8, 16), _f32(1, 2, 8, 16), _f32(1, 2, 8, 16)),
+     "multiple"),
+    (lambda q: (_f32(1, 2, 8, 24), _f32(1, 2, 8, 24), _f32(1, 2, 8, 16)),
+     "Dh=24"),
+    (lambda q: (_f32(1, 2, 8, 272), _f32(1, 2, 8, 272), _f32(1, 2, 8, 16)),
+     "Dh=272"),
+    (lambda q: (q, q, _f32(1, 2, 8, 8)), "Dh_v=8"),
+    (lambda q: (q, _f32(1, 2, 0, 16), _f32(1, 2, 0, 16)), "Skv = 0"),
+    (lambda q: (q, _f32(1, 2, 5, 16), q), "do not fit"),
+], ids=["f16", "int32", "mixed", "strided", "meta", "3d", "groups",
+        "dh24", "dh272", "dv8", "no-keys", "shapes"])
+def test_flash_attention_wrapper_refuses(bad, match):
+    q = _f32(1, 2, 8, 16)
+    with pytest.raises((TypeError, ValueError), match=match):
+        flash_ops.flash_attention(*bad(q))
+
+
+def test_flash_attention_wrapper_on_cpu_runs_the_plain_version_uncounted():
+    q = torch.randn((1, 4, 8, 16), generator=torch.Generator().manual_seed(0))
+    k = q[:, :2].contiguous()
+    before = dict(build.LAUNCHES)
+    assert torch.equal(flash_ops.flash_attention(q, k, k),
+                       flash_ops.attention_ref(q, k, k))
+    assert build.LAUNCHES == before
