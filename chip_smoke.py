@@ -50,6 +50,7 @@ Phases, each fatal on failure (exit code other than 0, no result line):
               of the kernel path's 32 prefill attention outputs is held
               against the plain attention on the same inputs, within B6's
               tolerance (2 bf16 ulps of each row's largest |value|).
+              Five more prefills per path are timed alone.
               Then three planted faults, each a generate through the plain
               path with the causal mask off by one (query i also sees key
               i + 1), in every layer, in the middle layer and in the last
@@ -62,7 +63,15 @@ Phases, each fatal on failure (exit code other than 0, no result line):
               the kept band-walk chunks; B5 also against the sparse plain
               version of the same rows), B6 on the prefill's first
               attention inputs within 2 bf16 ulps of each row's largest
-              |value|, and again in float32 at batch 1 within 1e-5.
+              |value| (the tensor-core kernel), and again in float32 at
+              batch 1 within 1e-5 (the scalar kernel).  Beyond the main
+              path's shapes: B2 at k = 1,024 for 16 queries over the alive
+              store (4 rounds of 256, counted), B1 and B5 on 256 rows at
+              d = 2,000,001 (above the shared-memory bitmap), bit for bit;
+              and `cuobjdump -sass` of the built flash library must show
+              HMMA (tensor-core) instructions in every bf16 instance, whose
+              registers / stack / local memory (`-res-usage`) are printed.
+              B6 and SDPA are timed over 5 runs each.
               Kernel time, plain time and the bound: the largest of the
               bytes moved over 3.35 TB/s (the H100 SXM's HBM rate), the
               32-bit integer operations over 64 per clock per SM and the
@@ -118,6 +127,12 @@ ZIPF_A = 1.1
 DRAWS = 1024  # Zipf draws per row; ~498 distinct on average, >= 298 needed
 K = 10
 N_TOPK_QUERIES, N_RADIUS_QUERIES, N_PAIRWISE_IDS = 256, 64, 4096
+# beyond the main path: top-k at k = 1,024 (4 rounds of the kernel's 256)
+# for 16 queries; Cabin above the shared-memory bitmap (d > 1,859,584)
+BIG_K, BIG_K_QUERIES = 1024, 16
+BIG_D, BIG_D_ROWS = 2_000_001, 256
+# timed runs of B6 and of its library yardstick, and prefills per LM path
+TIMED_RUNS = 5
 INDEX_KERNELS = ("cabin_build", "cabin_build_sparse", "pair_stats",
                  "row_popcount", "topk_select")
 
@@ -560,6 +575,8 @@ def lm_phase(seed: int, card: str) -> tuple[tuple, dict]:
         res = engine.generate(prompts, LM_NEW, LM_MAX_LEN, keep_logits=True)
         launches = dict(build.LAUNCHES)
         peak = torch.cuda.max_memory_allocated() / 2**30
+        prefill_runs = [engine.generate(prompts, 1, LM_MAX_LEN).prefill_s
+                        for _ in range(TIMED_RUNS)]
         if path == "kernel":
             # the same prefill once more, each attention's inputs and
             # output copied for the per-layer check (outside the measured
@@ -588,7 +605,9 @@ def lm_phase(seed: int, card: str) -> tuple[tuple, dict]:
             f"{res.prefill_s:.3f}s ({LM_BATCH * LM_PROMPT / res.prefill_s:.1f}"
             f" tokens/s), decode {LM_NEW} steps {res.decode_s:.3f}s "
             f"({LM_BATCH * LM_NEW / res.decode_s:.1f} tokens/s), peak device "
-            f"memory {peak:.2f} GiB, launches {launches} [{card}]")
+            f"memory {peak:.2f} GiB, launches {launches}; {TIMED_RUNS} more "
+            f"prefills alone: {prefill_runs} s (median "
+            f"{float(np.median(prefill_runs))} s) [{card}]")
 
     reading = compare_lm(runs["kernel"], runs["plain"])
     check(reading["ok"], f"the kernel LM path disagrees with the plain one: "
@@ -635,9 +654,39 @@ def topk_bytes(nq: int, m: int, w: int, k: int) -> int:
     return (nq + m) * w * 4 + (32 * w + 1) * 4 + nq * k * 8
 
 
+def flash_sass(lib: Path) -> dict:
+    """HMMA (tensor-core) instruction counts per flash kernel instance in
+    the built library's SASS, and each instance's resource use (a spill
+    shows as a stack frame or local memory).  Fails unless every bf16
+    instance has HMMA."""
+    tool = str(Path(build.find_nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    hmma = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        if "flash_" in name:
+            hmma[name] = sum("HMMA" in line for line in part.splitlines())
+    usage = subprocess.run([tool, "-res-usage", str(lib)],
+                           capture_output=True, text=True, check=True).stdout
+    lines = usage.splitlines()
+    for i, line in enumerate(lines):
+        if "flash_mma_kernel" in line and i + 1 < len(lines):
+            log(f"[build:flash_attention] {line.strip()} "
+                f"{lines[i + 1].strip()}")
+    mma = {n: c for n, c in hmma.items() if "flash_mma_kernel" in n}
+    check(len(mma) == 16 and all(c > 0 for c in mma.values()),
+          f"bf16 flash kernels without HMMA in their SASS: {mma}")
+    f32 = sum(c for n, c in hmma.items() if "flash_f32_kernel" in n)
+    log(f"[build:flash_attention] SASS HMMA per bf16 instance "
+        f"{sorted(mma.values())}; in the f32 instances {f32}")
+    return {"hmma_per_bf16_instance": sorted(mma.values()),
+            "hmma_in_f32_instances": f32}
+
+
 def kernel_phases(params: CabinParams, idx: torch.Tensor, val: torch.Tensor,
                   dense: torch.Tensor, runs: dict, qkv: tuple,
-                  launches: dict, rates: dict) -> list[dict]:
+                  launches: dict, rates: dict, sass: dict) -> list[dict]:
     out = []
     w = packing.packed_width(SKETCH_DIM)
     rate_text = (f"HBM 3.35e12 B/s; int32 {rates['int32']:.4g} op/s, popc "
@@ -710,7 +759,7 @@ def kernel_phases(params: CabinParams, idx: torch.Tensor, val: torch.Tensor,
 
     # B2: 256 queries against the whole alive store, k = 10, both metrics,
     # and each metric's largest band-walk chunk (rows past m_valid masked)
-    errs, ms, plain_ms, chunks = [], [], [], {}
+    errs, ms, plain_ms, chunks, big_k = [], [], [], {}, {}
     for metric in ("cham", "hamming"):
         cq, cb, ck, cm = runs[metric]["band_chunk"]
         gv, gi = topk_ops.topk_select(cq, cb, ck, d=SKETCH_DIM,
@@ -750,7 +799,7 @@ def kernel_phases(params: CabinParams, idx: torch.Tensor, val: torch.Tensor,
     nq = q_sk.shape[0]
     record("topk_select", max(errs), ms[0], plain_ms[0],
            topk_bytes(nq, n_alive, w, K), topk_ops_needed(nq, n_alive, w),
-           band_chunks=chunks)
+           band_chunks=chunks, big_k=big_k)
 
     # B5: the dense ingest, 4,096 x 141,043 -> (4,096, 128), also equal to
     # the sparse plain version of the same rows
@@ -803,18 +852,75 @@ def kernel_phases(params: CabinParams, idx: torch.Tensor, val: torch.Tensor,
         f"{f32_ms:.4f} ms; bf16 at the main shape {ratio:.4f} x its "
         f"tolerance; SDPA against the plain version: max |diff| {lib_err}")
     elem = q.element_size()
-    record("flash_attention", err,
-           cuda_ms(lambda: flash_ops.flash_attention(q, k, v, causal=True),
-                   10),
+    flash_runs = [cuda_ms(lambda: flash_ops.flash_attention(
+        q, k, v, causal=True), 10) for _ in range(TIMED_RUNS)]
+    sdpa_runs = [cuda_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                      enable_gqa=True), 10)
+                 for _ in range(TIMED_RUNS)]
+    flops = 4 * b * hq * s * skv * dh * 0.5  # QK^T, PV; causal half
+    log(f"[kernel:flash_attention:bf16] ({b}, {hq} / {k.shape[1]}, {s}, "
+        f"{dh}) causal, {TIMED_RUNS} runs of 10 launches: kernel "
+        f"{flash_runs} ms, SDPA {sdpa_runs} ms; kernel median "
+        f"{flops / float(np.median(flash_runs)) / 1e9:.1f} TFLOP/s")
+    record("flash_attention", err, float(np.median(flash_runs)),
            cuda_ms(lambda: flash_ops.attention_ref(q, k, v, causal=True), 3),
            (q.numel() + k.numel() + v.numel() + b * hq * s * dv) * elem,
            # QK^T and PV, 2 flops per multiply-add, half of them causal
-           {"bf16": 4 * b * hq * s * skv * dh * 0.5},
-           library_ms=cuda_ms(lambda: sdpa(q, k, v, is_causal=True,
-                                           enable_gqa=True), 10),
+           {"bf16": flops},
+           library_ms=float(np.median(sdpa_runs)),
            tolerance="2 bf16 ulps of each row's largest |value|",
-           tolerance_ratio=ratio, f32_max_abs_err=err32,
-           f32_tolerance_ratio=ratio32)
+           tolerance_ratio=ratio, ms_runs=flash_runs,
+           library_ms_runs=sdpa_runs, f32_max_abs_err=err32,
+           f32_tolerance_ratio=ratio32, f32_ms=f32_ms, sass=sass)
+
+    # Checks beyond the main shapes come after every main-shape timing, so
+    # that none of them runs just before a timing it could disturb.
+    # B1 and B5 above the shared-memory bitmap: the device-memory path
+    big = dict(kw, d=BIG_D)
+    bi, bv = idx[:BIG_D_ROWS].contiguous(), val[:BIG_D_ROWS].contiguous()
+    bx = dense[:BIG_D_ROWS].contiguous()
+    for name, kernel, plain in (
+            ("cabin_build_sparse", lambda: sparse_ops.cabin_build_sparse(
+                bi, bv, **big),
+             lambda: sparse_ops.cabin_build_sparse_ref(bi, bv, **big)),
+            ("cabin_build", lambda: dense_ops.cabin_build(bx, **big),
+             lambda: dense_ops.cabin_build_ref(bx, **big))):
+        got = kernel()
+        check(got.shape == (BIG_D_ROWS, (BIG_D + 31) // 32)
+              and torch.equal(got, plain()),
+              f"{name} != plain version at d = {BIG_D}")
+        del got
+        log(f"[kernel:{name}:d={BIG_D}] {BIG_D_ROWS} rows above the "
+            f"shared-memory bitmap (d > {sparse_ops.MAX_D}): bit-identical "
+            f"to the plain version, kernel {cuda_ms(kernel, 5):.4f} ms")
+
+    # B2 above one round (into B2's entry): 16 queries at k = 1,024, one
+    # launch per 256
+    for metric in ("cham", "hamming"):
+        qs = runs[metric]["q_sk"]
+        st = runs[metric]["alive"]
+        qb = qs[:BIG_K_QUERIES].contiguous()
+        before = build.LAUNCHES["topk_select"]
+        gv, gi = topk_ops.topk_select(qb, st, BIG_K, d=SKETCH_DIM,
+                                      metric=metric)
+        rounds = build.LAUNCHES["topk_select"] - before
+        wv, wi = topk_ops.topk_select_ref(qb, st, BIG_K, d=SKETCH_DIM,
+                                          metric=metric)
+        check(torch.equal(gi, wi) and torch.equal(gv, wv),
+              f"topk_select != plain at k = {BIG_K} ({metric})")
+        check(rounds == -(-BIG_K // topk_ops.MAX_K),
+              f"topk_select at k = {BIG_K} took {rounds} launches")
+        big_ms = cuda_ms(lambda: topk_ops.topk_select(
+            qb, st, BIG_K, d=SKETCH_DIM, metric=metric), 3)
+        one_ms = cuda_ms(lambda: topk_ops.topk_select(
+            qb, st, K, d=SKETCH_DIM, metric=metric), 3)
+        big_k[metric] = {"queries": BIG_K_QUERIES, "rows": st.shape[0],
+                         "k": BIG_K, "rounds": rounds, "ms": big_ms,
+                         f"ms_k{K}": one_ms}
+        log(f"[kernel:topk_select:{metric}:k={BIG_K}] {BIG_K_QUERIES} "
+            f"queries x {st.shape[0]} rows: bit-identical to the plain version "
+            f"in {rounds} rounds, kernel {big_ms:.4f} ms (k={K}, one round: "
+            f"{one_ms:.4f} ms)")
     return out
 
 
@@ -832,6 +938,7 @@ def smoke(seed: int, device=torch.device("cuda")) -> None:
     paths = build.build()
     log(f"[build] {len(paths)} libraries in {time.perf_counter() - t0:.1f}s "
         f"({', '.join(p.name for p in paths.values())})")
+    sass = flash_sass(paths["flash_attention"])
 
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -867,7 +974,8 @@ def smoke(seed: int, device=torch.device("cuda")) -> None:
 
     rates = peak_rates()
     kernels = kernel_phases(CabinParams.create(N_DIMS, SKETCH_DIM, seed=0),
-                            idx, val, dense, runs, qkv, launches, rates)
+                            idx, val, dense, runs, qkv, launches, rates,
+                            sass)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

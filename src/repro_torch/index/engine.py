@@ -171,10 +171,14 @@ class QueryEngine:
         sk, k = self._sketch((indices, values))
         return self.store.add(sk, n_valid=k)
 
-    def add_packed(self, packed, spec: SketchSpec | None = None
+    def add_packed(self, packed, raw=None, spec: SketchSpec | None = None
                    ) -> np.ndarray:
         """Ingest pre-sketched packed rows (k, w) int32, which MUST come
-        from this engine's CabinParams; `spec`, when given, is checked."""
+        from this engine's CabinParams; `spec`, when given, is checked.
+
+        `raw`, the rows' (indices, values) COO pair, is accepted and not
+        archived: the port has no raw archive or migration yet, so it
+        behaves as the JAX package's engine under keep_raw=False."""
         packed = _packed_on_device(packed, self.device)
         return self.store.add_packed(packed, spec, n_valid=packed.shape[0])
 

@@ -11,7 +11,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.cabin_build.ref import cabin_build_ref
-from repro_torch.kernels.cabin_build_sparse.ops import MAX_D
+from repro_torch.kernels.cabin_build_sparse.ops import MAX_KERNEL_D
 
 _ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p)
@@ -25,10 +25,13 @@ def cabin_build(x: torch.Tensor, *, d: int, psi_seed: int, pi_seed: int
     if x.ndim != 2:
         raise ValueError(f"cabin_build: expected (N, n) rows, got "
                          f"{tuple(x.shape)}")
-    if not 1 <= d <= MAX_D:
-        raise ValueError(f"cabin_build: d={d} outside [1, {MAX_D}]")
+    if d < 1:
+        raise ValueError(f"cabin_build: d={d} must be >= 1")
     if not cuda:
         return cabin_build_ref(x, d=d, psi_seed=psi_seed, pi_seed=pi_seed)
+    if d > MAX_KERNEL_D:
+        raise ValueError(f"cabin_build: d={d} above the kernel's "
+                         f"{MAX_KERNEL_D}")
     n_rows, n = x.shape
     out = torch.empty((n_rows, (d + 31) // 32), dtype=torch.int32,
                       device=x.device)

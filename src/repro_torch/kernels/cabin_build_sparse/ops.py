@@ -12,8 +12,12 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.cabin_build_sparse.ref import cabin_build_sparse_ref
 
-# the shared-memory bitmap holds ceil(d/32) words: 232,448 bytes at most
+# Largest d whose ceil(d/32)-word bitmap fits a block's shared memory
+# (232,448 bytes); above it the kernels OR into the output row in device
+# memory.  It chooses the kernel's path and limits nothing.
 MAX_D = 32 * (232448 // 4)
+# d is passed to the kernels as a C int
+MAX_KERNEL_D = 2**31 - 1
 
 _ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
          ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
@@ -29,11 +33,14 @@ def cabin_build_sparse(indices: torch.Tensor, values: torch.Tensor, *,
         raise ValueError("cabin_build_sparse: indices/values must be "
                          "identically-shaped (N, m), got "
                          f"{tuple(indices.shape)} and {tuple(values.shape)}")
-    if not 1 <= d <= MAX_D:
-        raise ValueError(f"cabin_build_sparse: d={d} outside [1, {MAX_D}]")
+    if d < 1:
+        raise ValueError(f"cabin_build_sparse: d={d} must be >= 1")
     if not cuda:
         return cabin_build_sparse_ref(indices, values, d=d, psi_seed=psi_seed,
                                       pi_seed=pi_seed)
+    if d > MAX_KERNEL_D:
+        raise ValueError(f"cabin_build_sparse: d={d} above the kernel's "
+                         f"{MAX_KERNEL_D}")
     n, m = indices.shape
     out = torch.empty((n, (d + 31) // 32), dtype=torch.int32,
                       device=indices.device)

@@ -13,18 +13,23 @@
 // reads every input byte once (coalesced, thread k takes slot k) and
 // writes every output word once; the bitmap never leaves shared memory.
 //
-// Shared memory bounds d to 32 * 58112 = 1,859,584 bits; the wrapper
-// raises above that.
+// A bitmap of ceil(d/32) words fits shared memory up to d = 32 * 58112 =
+// 1,859,584 bits.  Above that (kGlobal) the block zero-fills its own output
+// row in device memory and atomicOr-s into it there: the same bits, at
+// the cost of atomics that go to L2.
 #include "common.cuh"
 
 namespace {
 
+template <bool kGlobal>
 __global__ void cabin_sparse_kernel(const int32_t* __restrict__ indices,
                                     const int32_t* __restrict__ values,
                                     int32_t* __restrict__ out, int m, int d,
                                     int w, uint32_t psi_seed, uint32_t pi_seed) {
-  extern __shared__ uint32_t bitmap[];
+  extern __shared__ uint32_t smem_bitmap[];
   const size_t row = blockIdx.x;
+  uint32_t* bitmap =
+      kGlobal ? reinterpret_cast<uint32_t*>(out + row * w) : smem_bitmap;
   for (int i = threadIdx.x; i < w; i += blockDim.x) bitmap[i] = 0u;
   __syncthreads();
 
@@ -41,6 +46,7 @@ __global__ void cabin_sparse_kernel(const int32_t* __restrict__ indices,
       atomicOr(&bitmap[bucket >> 5], 1u << (bucket & 31u));
     }
   }
+  if (kGlobal) return;
   __syncthreads();
   for (int i = threadIdx.x; i < w; i += blockDim.x)
     out[row * w + i] = static_cast<int32_t>(bitmap[i]);
@@ -53,15 +59,22 @@ REPRO_EXPORT int cabin_build_sparse_launch(const void* indices, const void* valu
                                            void* out, int n_rows, int m, int d,
                                            unsigned int psi_seed,
                                            unsigned int pi_seed, void* stream) {
-  const int w = (d + 31) / 32;
+  if (d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int w = static_cast<int>((static_cast<int64_t>(d) + 31) / 32);
   const size_t smem = static_cast<size_t>(w) * sizeof(uint32_t);
-  if (smem > repro::kMaxDynamicSmem) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = repro::allow_smem(cabin_sparse_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_rows > 0) {
-    cabin_sparse_kernel<<<n_rows, 128, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(indices), static_cast<const int32_t*>(values),
-        static_cast<int32_t*>(out), m, d, w, psi_seed, pi_seed);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* ip = static_cast<const int32_t*>(indices);
+  const auto* vp = static_cast<const int32_t*>(values);
+  auto* op = static_cast<int32_t*>(out);
+  if (smem > repro::kMaxDynamicSmem) {
+    if (n_rows > 0)
+      cabin_sparse_kernel<true><<<n_rows, 128, 0, st>>>(ip, vp, op, m, d, w, psi_seed, pi_seed);
+    return static_cast<int>(cudaGetLastError());
   }
+  cudaError_t err = repro::allow_smem(cabin_sparse_kernel<false>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_rows > 0)
+    cabin_sparse_kernel<false><<<n_rows, 128, smem, st>>>(ip, vp, op, m, d, w, psi_seed,
+                                                          pi_seed);
   return static_cast<int>(cudaGetLastError());
 }

@@ -29,6 +29,13 @@
 // 64-bit key, distance bits over column, so one integer compare orders by
 // (distance, column)).  At the end, k rounds of a block-wide minimum over
 // the threads' list heads merge the lists.
+//
+// k above the thread-local cap (256) runs in rounds (topk_select/ops.py):
+// each round takes an optional per-query floor key and keeps only keys
+// above it, so round r, floored at round r-1's last key, writes slots
+// [r*256, r*256 + 256) of the (Q, k) outputs through a row stride and a
+// column offset.  Keys are unique, so the rounds together are exactly the
+// sorted first k; each round is one more pass over the store.
 #include <climits>
 
 #include "common.cuh"
@@ -49,9 +56,11 @@ __device__ __forceinline__ unsigned long long warp_min(unsigned long long v) {
 template <int kCap, bool kCham>
 __global__ void __launch_bounds__(kThreads)
 topk_select_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ b,
-                   const float* __restrict__ table, float* __restrict__ out_v,
-                   int32_t* __restrict__ out_i, int m, int w, int k,
-                   int table_len, int table_in_smem) {
+                   const float* __restrict__ table,
+                   const unsigned long long* __restrict__ floor_key,
+                   float* __restrict__ out_v, int32_t* __restrict__ out_i, int m,
+                   int w, int k, int ld_out, int col0, int table_len,
+                   int table_in_smem) {
   extern __shared__ uint32_t smem[];
   uint32_t* qs = smem;                                   // w words
   float* ts = reinterpret_cast<float*>(smem + w);        // table, if staged
@@ -69,6 +78,10 @@ topk_select_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ 
   int wa = 0;
   for (int i = lane; i < w; i += 32) wa += __popc(qs[i]);
   wa = repro::warp_sum(wa);
+
+  // keys at or below the floor were taken by an earlier round
+  const unsigned long long fl = floor_key ? floor_key[qi] : 0ull;
+  const bool floored = floor_key != nullptr;
 
   unsigned long long best[kCap];
   for (int i = 0; i < k; ++i) best[i] = ULLONG_MAX;
@@ -104,7 +117,7 @@ topk_select_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ 
       const unsigned long long key =
           (static_cast<unsigned long long>(__float_as_uint(dist)) << 32) |
           static_cast<uint32_t>(base + lane);
-      if (key < best[k - 1]) {
+      if (key < best[k - 1] && (!floored || key > fl)) {
         int p = k - 1;
         while (p > 0 && best[p - 1] > key) {
           best[p] = best[p - 1];
@@ -131,7 +144,7 @@ topk_select_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ 
     const unsigned long long win = block_best;
     if (win != ULLONG_MAX && mine == win) ++head;  // keys are unique
     if (tid == 0) {
-      const size_t o = qi * k + r;
+      const size_t o = qi * ld_out + col0 + r;
       if (win == ULLONG_MAX) {
         out_v[o] = __uint_as_float(0x7f800000u);  // +inf
         out_i[o] = -1;
@@ -143,10 +156,19 @@ topk_select_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ 
   }
 }
 
+struct Args {
+  const void* q;
+  const void* b;
+  const void* table;
+  const void* floor_key;
+  void* out_v;
+  void* out_i;
+  int nq, m, w, k, ld_out, col0, table_len;
+};
+
 template <int kCap, bool kCham>
-cudaError_t launch(const void* q, const void* b, const void* table, void* out_v,
-                   void* out_i, int nq, int m, int w, int k, int table_len,
-                   cudaStream_t stream) {
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  const int w = a.w, table_len = a.table_len;
   size_t smem = static_cast<size_t>(w) * sizeof(uint32_t);
   const size_t with_table = smem + static_cast<size_t>(table_len) * sizeof(float);
   const int table_in_smem = kCham && with_table <= repro::kMaxDynamicSmem;
@@ -154,35 +176,39 @@ cudaError_t launch(const void* q, const void* b, const void* table, void* out_v,
   if (smem > repro::kMaxDynamicSmem) return cudaErrorInvalidValue;
   cudaError_t err = repro::allow_smem(topk_select_kernel<kCap, kCham>, smem);
   if (err != cudaSuccess) return err;
-  topk_select_kernel<kCap, kCham><<<nq, kThreads, smem, stream>>>(
-      static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(b),
-      static_cast<const float*>(table), static_cast<float*>(out_v),
-      static_cast<int32_t*>(out_i), m, w, k, table_len, table_in_smem);
+  topk_select_kernel<kCap, kCham><<<a.nq, kThreads, smem, stream>>>(
+      static_cast<const uint32_t*>(a.q), static_cast<const uint32_t*>(a.b),
+      static_cast<const float*>(a.table),
+      static_cast<const unsigned long long*>(a.floor_key), static_cast<float*>(a.out_v),
+      static_cast<int32_t*>(a.out_i), a.m, w, a.k, a.ld_out, a.col0, table_len,
+      table_in_smem);
   return cudaGetLastError();
 }
 
 template <bool kCham>
-cudaError_t dispatch(const void* q, const void* b, const void* table, void* out_v,
-                     void* out_i, int nq, int m, int w, int k, int table_len,
-                     cudaStream_t s) {
-  if (k <= 16) return launch<16, kCham>(q, b, table, out_v, out_i, nq, m, w, k, table_len, s);
-  if (k <= 64) return launch<64, kCham>(q, b, table, out_v, out_i, nq, m, w, k, table_len, s);
-  if (k <= 256) return launch<256, kCham>(q, b, table, out_v, out_i, nq, m, w, k, table_len, s);
+cudaError_t dispatch(const Args& a, cudaStream_t s) {
+  if (a.k <= 16) return launch<16, kCham>(a, s);
+  if (a.k <= 64) return launch<64, kCham>(a, s);
+  if (a.k <= 256) return launch<256, kCham>(a, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q: (nq, w), b: (>= m, w) int32; table: (table_len,) f32 (cham only, may
-// be null for hamming); out_v: (nq, k) f32; out_i: (nq, k) int32.
-// 1 <= k <= 256.  Slots past m come back as (+inf, -1).
+// be null for hamming); floor_key: (nq,) uint64 (distance bits << 32 |
+// column) or null; out_v: (nq, ld_out) f32; out_i: (nq, ld_out) int32.
+// Writes the k smallest keys above each query's floor to columns
+// [col0, col0 + k) of its output row.  1 <= k <= 256, col0 + k <= ld_out.
+// Slots with no key left come back as (+inf, -1).
 REPRO_EXPORT int topk_select_launch(const void* q, const void* b, const void* table,
-                                    void* out_v, void* out_i, int nq, int m, int w,
-                                    int k, int cham, int table_len, void* stream) {
+                                    const void* floor_key, void* out_v, void* out_i,
+                                    int nq, int m, int w, int k, int ld_out, int col0,
+                                    int cham, int table_len, void* stream) {
   if (nq == 0) return static_cast<int>(cudaGetLastError());
+  if (k < 1 || col0 < 0 || col0 + k > ld_out) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, b, table, floor_key, out_v, out_i, nq, m, w, k, ld_out, col0, table_len};
   const auto s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      cham ? dispatch<true>(q, b, table, out_v, out_i, nq, m, w, k, table_len, s)
-           : dispatch<false>(q, b, table, out_v, out_i, nq, m, w, k, table_len, s);
+  const cudaError_t err = cham ? dispatch<true>(a, s) : dispatch<false>(a, s);
   return static_cast<int>(err);
 }

@@ -64,13 +64,23 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
         if d % 16 or not 16 <= d <= MAX_HEAD_DIM:
             raise ValueError(f"{what}: {name}={d} is not a multiple of 16 "
                              f"in [16, {MAX_HEAD_DIM}]")
-    return device.type == "cuda"
+    if device.type == "cpu":
+        return False
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{what}: bfloat16 tensors must start on a 16-byte "
+                         "boundary (the kernel copies 16-byte pieces)")
+    return True
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q (B,Hq,S,Dh), k (B,Hkv,Skv,Dh), v (B,Hkv,Skv,Dh_v), bfloat16 or
-    float32 -> (B,Hq,S,Dh_v) in q's dtype, float32 math."""
+    float32 -> (B,Hq,S,Dh_v) in q's dtype, float32 softmax and sums.
+
+    On CUDA, bfloat16 runs the tensor-core kernel (both products as bf16
+    mma.sync with f32 accumulation; P is rounded to bf16 for P V), float32
+    the scalar f32 kernel: bf16 tensor cores cannot meet the float32
+    tolerance, and no main path runs float32."""
     if not _check(q, k, v):
         return attention_ref(q, k, v, causal=causal)
     b, hq, s, dh = q.shape

@@ -149,3 +149,21 @@ def test_dense_wrapper_on_the_cpu_is_the_plain_version_uncounted():
     assert build.LAUNCHES == before
     with pytest.raises(ValueError, match="d="):
         dense_ops.cabin_build(x, d=0, psi_seed=0, pi_seed=0)
+
+
+@pytest.mark.parametrize("d", [sparse_ops.MAX_D + 1, 2_000_001])
+def test_sketches_above_the_shared_memory_bitmap_match_reference(d):
+    """Above MAX_D the kernels OR in device memory; the wrappers' plain
+    versions take such d as the JAX package's jnp paths do, bit for bit."""
+    idx, val = _coo(d % 1000, n_rows=3)
+    x = _dense_rows(d % 1000, n_rows=3, n=N_DIMS)
+    pj = jcabin.CabinParams.create(N_DIMS, d, seed=9)
+    pt = tcabin.CabinParams.create(N_DIMS, d, seed=9)
+    got = tcabin.sketch_sparse(pt, torch.from_numpy(idx),
+                               torch.from_numpy(val))
+    assert got.shape == (3, (d + 31) // 32)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(
+        jcabin.sketch_sparse_jnp(pj, jnp.asarray(idx), jnp.asarray(val))))
+    np.testing.assert_array_equal(
+        tcabin.sketch_dense(pt, torch.from_numpy(x)).numpy(),
+        np.asarray(jcabin.sketch_dense(pj, jnp.asarray(x))))

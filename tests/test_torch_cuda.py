@@ -54,7 +54,8 @@ def _words(rng, n, w, dev):
 
 
 @pytest.mark.parametrize("d", [1, 31, 200, 4096, 100_003,
-                               sparse_ops.MAX_D])
+                               sparse_ops.MAX_D, sparse_ops.MAX_D + 1,
+                               2_000_001])
 def test_cabin_build_sparse_every_d(dev, d):
     rng = np.random.default_rng(d % 1000)
     idx = rng.integers(-5, 2**31 - 1, size=(9, 300)).astype(np.int32)
@@ -64,10 +65,6 @@ def test_cabin_build_sparse_every_d(dev, d):
     kw = dict(d=d, psi_seed=0x7FFFFFFF, pi_seed=12345)
     got = sparse_ops.cabin_build_sparse(i, v, **kw)
     assert torch.equal(got, sparse_ops.cabin_build_sparse_ref(i, v, **kw))
-    if d == sparse_ops.MAX_D:
-        with pytest.raises(ValueError):
-            sparse_ops.cabin_build_sparse(i, v, d=d + 1, psi_seed=0,
-                                          pi_seed=0)
 
 
 @pytest.mark.parametrize("m,w", [(1, 1), (7, 33), (1000, 128), (3, 2000)])
@@ -91,14 +88,14 @@ def test_pair_stats(dev, m, n, w):
 
 
 @pytest.mark.parametrize("metric", ["cham", "hamming"])
-@pytest.mark.parametrize("k", [1, 16, 17, 64, 65, 256])
+@pytest.mark.parametrize("k", [1, 16, 17, 64, 65, 256, 257, 1024])
 @pytest.mark.parametrize("w", [1, 5, 128, 2000])
 def test_topk_select_edges(dev, metric, k, w):
     rng = np.random.default_rng(k * 10 + w)
     q = _words(rng, 5, w, dev)
     b = _words(rng, 600, w, dev)
     b[300:400] = b[100:200]  # equal distances: the lower column must win
-    for m in (600, 300, k - 1 if k > 1 else 0):  # k > m: (+inf, -1) fill
+    for m in (600, 300, min(k - 1, 599)):  # k > m: (+inf, -1) fill
         gv, gi = topk_ops.topk_select(q, b, k, d=32 * w - 7, metric=metric,
                                       m_valid=m)
         wv, wi = topk_ops.topk_select_ref(q, b, k, d=32 * w - 7,
@@ -108,12 +105,21 @@ def test_topk_select_edges(dev, metric, k, w):
 
 
 def test_topk_select_cap(dev):
-    q = torch.zeros((2, 4), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="cap"):
-        topk_ops.topk_select(q, q, topk_ops.MAX_K + 1, d=128)
+    """k above the per-round cap runs ceil(min(k, m) / MAX_K) launches."""
+    rng = np.random.default_rng(3)
+    q, b = _words(rng, 3, 4, dev), _words(rng, 700, 4, dev)
+    for k, m, rounds in ((topk_ops.MAX_K + 1, 700, 2), (3 * topk_ops.MAX_K,
+                                                       700, 3),
+                         (1000, 300, 2), (10, 0, 0)):
+        before = build.LAUNCHES["topk_select"]
+        gv, gi = topk_ops.topk_select(q, b, k, d=128, m_valid=m)
+        assert build.LAUNCHES["topk_select"] - before == rounds
+        wv, wi = topk_ops.topk_select_ref(q, b, k, d=128, m_valid=m)
+        assert torch.equal(gi, wi) and torch.equal(gv, wv), (k, m)
 
 
-@pytest.mark.parametrize("d", [1, 31, 4096, 4097, sparse_ops.MAX_D])
+@pytest.mark.parametrize("d", [1, 31, 4096, 4097, sparse_ops.MAX_D,
+                               sparse_ops.MAX_D + 1, 2_000_001])
 def test_cabin_build_dense_every_d(dev, d):
     rng = np.random.default_rng(d % 1000)
     x = rng.integers(-3, 50, size=(7, 5000)).astype(np.int32)
@@ -127,9 +133,6 @@ def test_cabin_build_dense_every_d(dev, d):
     kw = dict(d=d, psi_seed=0x7FFFFFFF, pi_seed=12345)
     got = dense_ops.cabin_build(xt, **kw)
     assert torch.equal(got, dense_ops.cabin_build_ref(xt, **kw))
-    if d == sparse_ops.MAX_D:
-        with pytest.raises(ValueError):
-            dense_ops.cabin_build(xt, d=d + 1, psi_seed=0, pi_seed=0)
 
 
 # (b, hq, hkv, s, skv, dh, dv, causal)
@@ -144,6 +147,14 @@ FLASH_CASES = [
     (1, 4, 1, 130, 130, 16, 48, True),
     (1, 16, 2, 77, 77, 80, 80, True),
     (1, 4, 2, 70, 129, 256, 16, True),
+    # S and Skv not multiples of the 64-row tiles, both masks
+    (2, 8, 2, 191, 191, 128, 128, True),
+    (1, 4, 2, 191, 250, 128, 64, False),
+    (1, 2, 1, 33, 1000, 64, 64, True),
+    (1, 2, 2, 1000, 33, 64, 192, True),
+    (1, 6, 3, 127, 300, 256, 128, False),
+    # the LM prefill's shape (llama3-8B, 4 x 1,024 tokens)
+    (4, 32, 8, 1024, 1024, 128, 128, True),
 ]
 
 
@@ -168,6 +179,14 @@ def test_flash_attention_refuses_mixed_devices(dev):
     q = torch.zeros((1, 2, 4, 16), device=dev)
     with pytest.raises(ValueError, match="devices"):
         flash_ops.flash_attention(q, q.cpu(), q)
+
+
+def test_flash_attention_refuses_unaligned_bfloat16(dev):
+    q = torch.zeros((1, 2, 8, 16), dtype=torch.bfloat16, device=dev)
+    shifted = torch.zeros(q.numel() + 1, dtype=torch.bfloat16,
+                          device=dev)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_ops.flash_attention(shifted, q, q)
 
 
 def _to(tree, device):
@@ -205,6 +224,32 @@ def test_each_wrapper_counts_one_launch_per_call(dev):
     topk_ops.topk_select(x, x, 3, d=128)
     for name in before:
         assert build.LAUNCHES[name] == before[name] + 1, name
+
+
+@pytest.mark.parametrize("metric", ["cham", "hamming"])
+def test_engine_topk_any_k_on_cuda_equals_the_cpu(dev, metric):
+    """topk above the kernel's 256 keys a round, on CUDA and on the CPU,
+    against one sort of the alive store by the plain version."""
+    rng = np.random.default_rng(2)
+    params = CabinParams.create(5000, 300, seed=3)
+    engines = [QueryEngine(params, metric=metric, band_rows=64, device=d)
+               for d in ("cpu", dev)]
+    idx = rng.integers(0, 5000, size=(1500, 40)).astype(np.int32)
+    val = rng.integers(0, 6, size=(1500, 40)).astype(np.int32)
+    for e in engines:
+        e.add_sparse(idx[:1300], val[:1300])
+        e.remove(np.arange(0, 1300, 7))
+        e.add_sparse(idx[1300:], val[1300:])
+    queries = ((idx[:5] + 1) % 5000, val[:5])
+    mat, m_alive, alive_ids = engines[0].store.gather_alive()
+    q_sk = engines[0]._sketch(queries)[0]
+    for k in (1, 10, 256, 257, 1024):
+        (ci, cv), (gi, gv) = [e.topk(queries, k) for e in engines]
+        assert np.array_equal(ci, gi) and np.array_equal(cv, gv), k
+        bv, bpos = topk_ops.topk_select_ref(q_sk, mat[:m_alive].contiguous(),
+                                            k, d=300, metric=metric)
+        assert np.array_equal(alive_ids[bpos.numpy()], ci), k
+        assert np.array_equal(bv.numpy(), cv), k
 
 
 @pytest.mark.parametrize("metric", ["cham", "hamming"])

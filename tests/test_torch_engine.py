@@ -12,6 +12,7 @@ radius and pairwise give bit-identical distances for the same pair.
 
 import dataclasses
 import importlib
+import inspect
 
 import numpy as np
 import pytest
@@ -160,6 +161,34 @@ def test_packed_queries_answer_like_raw_queries():
                     got.radius_packed(sk, 300.0)):
         np.testing.assert_array_equal(a, b)
     assert got.stats()["cache_hits"] == 2  # the second calls hit the LRU
+
+
+@pytest.mark.parametrize("metric", ["hamming", "cham"])
+def test_add_packed_takes_the_reference_signature(metric):
+    """add_packed(packed, raw=None, spec=None), as the JAX package's: a
+    positional second argument is `raw`, and rows ingested either way
+    answer as the same rows ingested by add_sparse."""
+    assert (list(inspect.signature(QueryEngine.add_packed).parameters)
+            == list(inspect.signature(JaxEngine.add_packed).parameters))
+    rng = np.random.default_rng(8)
+    engines = [_engines(metric, 256)[1] for _ in range(3)]
+    idx, val = _coo(rng, 150)
+    sk = engines[0]._sketch((idx, val))[0]
+    ids = [engines[0].add_sparse(idx, val),
+           engines[1].add_packed(sk, None, engines[1].spec),
+           engines[2].add_packed(sk, raw=(idx, val))]
+    queries = _coo(rng, 6)
+    want = engines[0].topk(queries, K)
+    r = float(np.median(want[1][:, -1]))
+    for e, got_ids in zip(engines[1:], ids[1:]):
+        np.testing.assert_array_equal(got_ids, ids[0])
+        for a, b in zip(e.topk(queries, K), want):
+            np.testing.assert_array_equal(a, b)
+        for a, b in zip(e.radius(queries, r), engines[0].radius(queries, r)):
+            np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError, match="do not match"):
+        engines[1].add_packed(sk, None, dataclasses.replace(
+            engines[1].spec, version=1))
 
 
 def test_topk_across_tiers_equals_one_scan_of_the_union():

@@ -26,6 +26,7 @@ from repro.kernels.hamming import ops as jhops
 from repro.kernels.topk_select.ref import topk_select_ref
 from repro_torch.kernels.hamming import ops as thops
 from repro_torch.kernels.hamming.ref import pair_stats_ref, row_popcount_ref
+from repro_torch.kernels.topk_select import ops as ttopk_ops
 from repro_torch.kernels.topk_select import ref as ttopk
 
 jall = importlib.import_module("repro.core.allpairs")
@@ -132,6 +133,34 @@ def test_topk_select_ref_matches_reference(metric, q, n, w, k, m_valid):
                        metric=metric, m_valid=m)
     _check_topk(metric, a, b, gv.numpy(), gi.numpy(), np.asarray(ov),
                 np.asarray(oi))
+
+
+@pytest.mark.parametrize("metric", ["cham", "hamming"])
+@pytest.mark.parametrize("k", [1, 255, 256, 257, 512, 1024, "m"])
+def test_topk_select_rounds_equal_one_sort(metric, k):
+    """Any k runs as rounds of MAX_K keys, each floored at the last key of
+    the round before.  On the CPU each round is `topk_round_ref` (the
+    kernel's round with the floor applied), so the wrapper's round loop is
+    the one the card runs; joined, the rounds equal the one-sort plain
+    version bit for bit, and the JAX package's oracle (ids and Hamming
+    exact, Cham at its term tolerance).  Rows 600-699 repeat rows
+    100-199, so equal distances must go to the lower column across round
+    boundaries."""
+    rng = np.random.default_rng(17)
+    a, b = _words(rng, 5, 8), _words(rng, 1100, 8)
+    b[600:700] = b[100:200]
+    for m in (1100, 900):
+        kk = m if k == "m" else k
+        gv, gi = ttopk_ops.topk_select(T(a), T(b), kk, d=D, metric=metric,
+                                       m_valid=m)
+        wv, wi = ttopk.topk_select_ref(T(a), T(b), kk, d=D, metric=metric,
+                                       m_valid=m)
+        assert torch.equal(gi, wi) and torch.equal(gv, wv), (kk, m)
+        if kk <= m:  # the oracle fills slots past m with masked columns
+            ov, oi = jtopk_ref(jnp.asarray(a), jnp.asarray(b), k=kk, d=D,
+                               metric=metric, m_valid=m)
+            _check_topk(metric, a, b[:m], gv.numpy(), gi.numpy(),
+                        np.asarray(ov), np.asarray(oi))
 
 
 @pytest.mark.parametrize("metric", ["cham", "hamming"])

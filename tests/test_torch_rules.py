@@ -205,6 +205,8 @@ def test_topk_select_kernel_cap_is_enforced_only_for_the_kernel():
     q, b = _i32(2, 3), _i32(300, 3)
     vals, idxs = topk_ops.topk_select(q, b, topk_ops.MAX_K + 1, d=96)
     assert vals.shape == (2, topk_ops.MAX_K + 1)
+    want = topk_ops.topk_select_ref(q, b, topk_ops.MAX_K + 1, d=96)
+    assert torch.equal(vals, want[0]) and torch.equal(idxs, want[1])
 
 
 def _f32(*shape, dtype=torch.float32):
@@ -233,6 +235,19 @@ def test_flash_attention_wrapper_refuses(bad, match):
     q = _f32(1, 2, 8, 16)
     with pytest.raises((TypeError, ValueError), match=match):
         flash_ops.flash_attention(*bad(q))
+
+
+def test_flash_attention_wrapper_on_cpu_takes_unaligned_bfloat16():
+    """Only the CUDA kernel copies 16-byte pieces; the plain version takes a
+    bfloat16 tensor at any offset."""
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn((1, 2, 8, 16), generator=gen).bfloat16()
+    shifted = torch.empty(q.numel() + 1, dtype=torch.bfloat16)[1:].view(
+        q.shape)
+    shifted.copy_(q)
+    assert shifted.data_ptr() % 16
+    assert torch.equal(flash_ops.flash_attention(shifted, q, q),
+                       flash_ops.attention_ref(q, q, q))
 
 
 def test_flash_attention_wrapper_on_cpu_runs_the_plain_version_uncounted():
