@@ -30,7 +30,11 @@ Phases, each fatal on failure (exit code other than 0, no result line):
               counts are set to 0 just before this phase and each index
               kernel's must have risen just after.  The largest band-walk
               chunk each topk handed the top-k kernel (pow2-padded rows,
-              fewer of them valid) is kept.
+              fewer of them valid) is kept.  After the counts are read,
+              each engine's topk call is timed on 5 fresh batches of 256
+              queries (none answered from the engine's result cache; each
+              held against brute force), and each rate is printed beside
+              the median.
  5. lm      - llama3-8B at full width and depth (32 layers, d_model 4096,
               32 heads / 8 KV heads, vocab 128,256, bf16), weights drawn on
               the card from --seed (16 GB).  ServeEngine.generate answers 4
@@ -66,19 +70,25 @@ Phases, each fatal on failure (exit code other than 0, no result line):
               |value| (the tensor-core kernel), and again in float32 at
               batch 1 within 1e-5 (the scalar kernel).  Beyond the main
               path's shapes: B2 at k = 1,024 for 16 queries over the alive
-              store (4 rounds of 256, counted), B1 and B5 on 256 rows at
-              d = 2,000,001 (above the shared-memory bitmap), bit for bit;
-              and `cuobjdump -sass` of the built flash library must show
-              HMMA (tensor-core) instructions in every bf16 instance, whose
-              registers / stack / local memory (`-res-usage`) are printed.
-              B6 and SDPA are timed over 5 runs each.
+              store (one pass, one select and one merge launch, counted),
+              B1 and B5 on 256 rows at d = 2,000,001 (above the
+              shared-memory bitmap), bit for bit; `cuobjdump -sass` of the
+              built flash library must show HMMA (tensor-core)
+              instructions in every bf16 instance, whose registers / stack
+              / local memory (`-res-usage`) are printed; and every B2
+              select instance must show IMMA (int8 tensor-core)
+              instructions and use no stack and no local memory.  B2's
+              plan (query tile BQ, splits S, scratch bytes) is printed for
+              each of its shapes; B2 at the main shape, B6 and SDPA are
+              timed over 5 runs each.
               Kernel time, plain time and the bound: the largest of the
               bytes moved over 3.35 TB/s (the H100 SXM's HBM rate), the
               32-bit integer operations over 64 per clock per SM and the
               population counts over 16 per clock per SM (CUDA C++
               Programming Guide, arithmetic instruction throughput,
               compute capability 9.0) at this card's SM count and maximum
-              SM clock, and bf16 flops over 989 TFLOP/s (data sheet).  For
+              SM clock, bf16 flops over 989 TFLOP/s and int8 operations
+              (B2's inner products) over 1,979 TOP/s (data sheet).  For
               B6 also the time of PyTorch's scaled_dot_product_attention
               on the same inputs (library_ms, a yardstick the port never
               calls).
@@ -127,11 +137,12 @@ ZIPF_A = 1.1
 DRAWS = 1024  # Zipf draws per row; ~498 distinct on average, >= 298 needed
 K = 10
 N_TOPK_QUERIES, N_RADIUS_QUERIES, N_PAIRWISE_IDS = 256, 64, 4096
-# beyond the main path: top-k at k = 1,024 (4 rounds of the kernel's 256)
-# for 16 queries; Cabin above the shared-memory bitmap (d > 1,859,584)
+# beyond the main path: top-k at k = 1,024 (one pass of the kernel) for 16
+# queries; Cabin above the shared-memory bitmap (d > 1,859,584)
 BIG_K, BIG_K_QUERIES = 1024, 16
 BIG_D, BIG_D_ROWS = 2_000_001, 256
-# timed runs of B6 and of its library yardstick, and prefills per LM path
+# timed runs of B2 and B6 and of B6's library yardstick, prefills per LM
+# path, and topk calls per metric
 TIMED_RUNS = 5
 INDEX_KERNELS = ("cabin_build", "cabin_build_sparse", "pair_stats",
                  "row_popcount", "topk_select")
@@ -158,8 +169,10 @@ LOGIT_TOL = 0.25
 HBM_BYTES_PER_S = 3.35e12
 INT32_PER_CLOCK_SM = 64
 POPC_PER_CLOCK_SM = 16
-# dense bf16 tensor-core rate of the H100 SXM (NVIDIA data sheet, 700 W)
+# dense bf16 and int8 tensor-core rates of the H100 SXM (NVIDIA data
+# sheet, 700 W)
 BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
 
 REPLACES = {
     "cabin_build": "src/repro/kernels/cabin_build/kernel.py:78",
@@ -215,7 +228,7 @@ def peak_rates() -> dict:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     per_clock_sm = {"int32": INT32_PER_CLOCK_SM, "popc": POPC_PER_CLOCK_SM}
-    return {"sms": sms, "mhz": mhz, "bf16": BF16_FLOPS, **{
+    return {"sms": sms, "mhz": mhz, "bf16": BF16_FLOPS, "int8": INT8_OPS, **{
         kind: n * sms * mhz * 1e6 for kind, n in per_clock_sm.items()}}
 
 
@@ -413,7 +426,38 @@ def main_path(metric: str, idx: torch.Tensor, val: torch.Tensor,
         f"({N_TOPK_QUERIES / topk_s:.1f} queries/s), radius r={r:.4f} "
         f"{radius_s:.3f}s ({n_hits} hits), pairwise "
         f"{N_RADIUS_QUERIES}x{N_PAIRWISE_IDS} {pairwise_s:.3f}s [{card}]")
-    return {"q_sk": q_sk, "alive": alive, "band_chunk": band_chunk}
+    return {"q_sk": q_sk, "alive": alive, "band_chunk": band_chunk,
+            "engine": engine, "alive_ids": alive_ids}
+
+
+def time_topk(metric: str, run: dict, batches: list, card: str
+              ) -> list[float]:
+    """The main path's topk call on its engine, once for each of
+    TIMED_RUNS fresh batches of N_TOPK_QUERIES COO queries (fresh, so that
+    no call is answered from the engine's result cache), after the main
+    path's launch counts were read: queries/s of each call, host clock
+    (the answers come back to the host); each answer is held against the
+    brute-force scan."""
+    engine = run.pop("engine")
+    rates = []
+    for q_idx, q_val in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids, dist = engine.topk((q_idx, q_val), K)
+        rates.append(N_TOPK_QUERIES / (time.perf_counter() - t0))
+        q_sk = sparse_ops.cabin_build_sparse_ref(
+            q_idx, q_val, d=SKETCH_DIM, psi_seed=engine.params.psi_seed,
+            pi_seed=engine.params.pi_seed)
+        bv, bpos = topk_ops.topk_select_ref(q_sk, run["alive"], K,
+                                            d=SKETCH_DIM, metric=metric)
+        check(np.array_equal(run["alive_ids"][bpos.cpu().numpy()], ids)
+              and np.array_equal(bv.cpu().numpy(), dist),
+              f"{metric}: a timed topk call differs from brute force")
+    log(f"[main:{metric}] topk {N_TOPK_QUERIES} fresh queries, "
+        f"{TIMED_RUNS} calls: {rates} queries/s (median "
+        f"{float(np.median(rates))} queries/s), each equal to brute force "
+        f"[{card}]")
+    return rates
 
 
 # ---------------------------------------------------------------------------
@@ -642,10 +686,11 @@ def lm_phase(seed: int, card: str) -> tuple[tuple, dict]:
 
 
 def topk_ops_needed(nq: int, m: int, w: int) -> dict:
-    """Operations a k-best of nq queries over m rows of w words needs:
-    per (query, row, word) an AND, a popcount and an add; per (row, word)
-    a popcount and an add for the row weight, which is the row's alone."""
-    return {"int32": 2 * nq * m * w + m * w, "popc": nq * m * w + m * w}
+    """Operations a k-best of nq queries over m rows of w words needs on
+    the int8 tensor cores, which B2 runs its inner products on: per (query,
+    row, word) 32 multiply-adds of 0/1 bytes, 2 operations each; per (row,
+    word) a popcount and an add for the row weight, the row's alone."""
+    return {"int8": 2 * 32 * nq * m * w, "int32": m * w, "popc": m * w}
 
 
 def topk_bytes(nq: int, m: int, w: int, k: int) -> int:
@@ -684,14 +729,56 @@ def flash_sass(lib: Path) -> dict:
             "hmma_in_f32_instances": f32}
 
 
+def topk_res_usage(lib: Path) -> dict:
+    """Registers, stack and local memory (`cuobjdump -res-usage`) and the
+    IMMA (int8 tensor-core) instructions (`cuobjdump -sass`) of every B2
+    select instance in the built library; fails if any instance keeps a
+    stack frame or local memory (its k-best would then spill) or has no
+    IMMA."""
+    tool = str(Path(build.find_nvcc()).with_name("cuobjdump"))
+
+    def dump(flag: str) -> str:
+        return subprocess.run([tool, flag, str(lib)], capture_output=True,
+                              text=True, check=True).stdout
+
+    def instance(line: str) -> str:
+        return line.split("topk_split_kernel", 1)[1].split("EEEv")[0]
+
+    lines = dump("-res-usage").splitlines()
+    usage = {}
+    for i, line in enumerate(lines):
+        if ("topk_split_kernel" in line and i + 1 < len(lines)
+                and "REG:" in lines[i + 1]):
+            fields = dict(f.split(":", 1) for f in lines[i + 1].split()
+                          if ":" in f)
+            usage[instance(line)] = {f: int(fields[f]) for f in ("REG", "STACK",
+                                                                 "LOCAL")}
+    for part in dump("-sass").split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        if "topk_split_kernel" in name and instance(name) in usage:
+            usage[instance(name)]["IMMA"] = sum(
+                "IMMA" in line for line in part.splitlines())
+    log(f"[build:topk_select] select instances (BQ, CAP, cham) -> registers "
+        f"/ stack / local bytes / IMMA instructions: {usage}")
+    check(len(usage) == 10, f"expected 10 select instances, got {usage}")
+    check(all(u["STACK"] == 0 and u["LOCAL"] == 0 for u in usage.values()),
+          f"a B2 select instance uses a stack or local memory: {usage}")
+    check(all(u.get("IMMA", 0) > 0 for u in usage.values()),
+          f"a B2 select instance has no IMMA (int8 tensor-core) "
+          f"instruction: {usage}")
+    return usage
+
+
 def kernel_phases(params: CabinParams, idx: torch.Tensor, val: torch.Tensor,
                   dense: torch.Tensor, runs: dict, qkv: tuple,
-                  launches: dict, rates: dict, sass: dict) -> list[dict]:
+                  launches: dict, rates: dict, sass: dict,
+                  topk_usage: dict) -> list[dict]:
     out = []
     w = packing.packed_width(SKETCH_DIM)
     rate_text = (f"HBM 3.35e12 B/s; int32 {rates['int32']:.4g} op/s, popc "
                  f"{rates['popc']:.4g} op/s at {rates['sms']} SMs x "
-                 f"{rates['mhz']:.0f} MHz; bf16 {rates['bf16']:.4g} flop/s")
+                 f"{rates['mhz']:.0f} MHz; bf16 {rates['bf16']:.4g} flop/s, int8 "
+                 f"{rates['int8']:.4g} op/s")
 
     def record(name, err, ms, plain_ms, n_bytes, ops, library_ms=None,
                tolerance="0: bit-identical to the plain version", **extra):
@@ -759,7 +846,8 @@ def kernel_phases(params: CabinParams, idx: torch.Tensor, val: torch.Tensor,
 
     # B2: 256 queries against the whole alive store, k = 10, both metrics,
     # and each metric's largest band-walk chunk (rows past m_valid masked)
-    errs, ms, plain_ms, chunks, big_k = [], [], [], {}, {}
+    errs, ms_runs, plain_ms, chunks, big_k = [], {}, [], {}, {}
+    sms = rates["sms"]
     for metric in ("cham", "hamming"):
         cq, cb, ck, cm = runs[metric]["band_chunk"]
         gv, gi = topk_ops.topk_select(cq, cb, ck, d=SKETCH_DIM,
@@ -775,13 +863,15 @@ def kernel_phases(params: CabinParams, idx: torch.Tensor, val: torch.Tensor,
             cq, cb, ck, d=SKETCH_DIM, metric=metric, m_valid=cm), 1)
         c_bound, _ = bound(topk_bytes(cq.shape[0], cm, w, ck),
                            topk_ops_needed(cq.shape[0], cm, w), rates)
+        c_plan = topk_ops.plan(cq.shape[0], cm, ck, w, sms)
         chunks[metric] = {"queries": cq.shape[0], "rows": cb.shape[0],
                           "m_valid": cm, "k": ck, "ms": c_ms,
-                          "plain_ms": c_plain, "bound_ms": c_bound}
+                          "plain_ms": c_plain, "bound_ms": c_bound,
+                          "plan": c_plan._asdict()}
         log(f"[kernel:topk_select:{metric}:band_chunk] {cq.shape[0]} "
-            f"queries x {cb.shape[0]} rows ({cm} valid), k={ck}: "
-            f"bit-identical to the plain version, kernel {c_ms:.4f} ms, "
-            f"plain {c_plain:.4f} ms, bound {c_bound:.4f} ms")
+            f"queries x {cb.shape[0]} rows ({cm} valid), k={ck}, plan "
+            f"{c_plan}: bit-identical to the plain version, kernel "
+            f"{c_ms:.4f} ms, plain {c_plain:.4f} ms, bound {c_bound:.4f} ms")
         qs = runs[metric]["q_sk"]
         st = runs[metric]["alive"]
         gv, gi = topk_ops.topk_select(qs, st, K, d=SKETCH_DIM, metric=metric)
@@ -790,16 +880,24 @@ def kernel_phases(params: CabinParams, idx: torch.Tensor, val: torch.Tensor,
         check(torch.equal(gi, wi), f"topk_select ids != plain ({metric})")
         check(torch.equal(gv, wv), f"topk_select values != plain ({metric})")
         errs.append(float((gv - wv).abs().max()))
-        ms.append(cuda_ms(lambda: topk_ops.topk_select(
-            qs, st, K, d=SKETCH_DIM, metric=metric), 3))
+        ms_runs[metric] = [cuda_ms(lambda: topk_ops.topk_select(
+            qs, st, K, d=SKETCH_DIM, metric=metric), 3)
+            for _ in range(TIMED_RUNS)]
         plain_ms.append(cuda_ms(lambda: topk_ops.topk_select_ref(
             qs, st, K, d=SKETCH_DIM, metric=metric), 1, warmup=0))
-        log(f"[kernel:topk_select:{metric}] kernel {ms[-1]:.4f} ms, plain "
+        log(f"[kernel:topk_select:{metric}] {qs.shape[0]} queries x "
+            f"{st.shape[0]} rows, k={K}, plan "
+            f"{topk_ops.plan(qs.shape[0], st.shape[0], K, w, sms)}: "
+            f"{TIMED_RUNS} runs of 3 launches {ms_runs[metric]} ms (median "
+            f"{float(np.median(ms_runs[metric])):.4f} ms), plain "
             f"{plain_ms[-1]:.4f} ms")
     nq = q_sk.shape[0]
-    record("topk_select", max(errs), ms[0], plain_ms[0],
-           topk_bytes(nq, n_alive, w, K), topk_ops_needed(nq, n_alive, w),
-           band_chunks=chunks, big_k=big_k)
+    record("topk_select", max(errs), float(np.median(ms_runs["cham"])),
+           plain_ms[0], topk_bytes(nq, n_alive, w, K),
+           topk_ops_needed(nq, n_alive, w), ms_runs=ms_runs,
+           hamming_ms=float(np.median(ms_runs["hamming"])),
+           plan=topk_ops.plan(nq, n_alive, K, w, sms)._asdict(),
+           band_chunks=chunks, big_k=big_k, res_usage=topk_usage)
 
     # B5: the dense ingest, 4,096 x 141,043 -> (4,096, 128), also equal to
     # the sparse plain version of the same rows
@@ -894,8 +992,7 @@ def kernel_phases(params: CabinParams, idx: torch.Tensor, val: torch.Tensor,
             f"shared-memory bitmap (d > {sparse_ops.MAX_D}): bit-identical "
             f"to the plain version, kernel {cuda_ms(kernel, 5):.4f} ms")
 
-    # B2 above one round (into B2's entry): 16 queries at k = 1,024, one
-    # launch per 256
+    # B2 at k = 1,024 (into B2's entry): 16 queries in one pass
     for metric in ("cham", "hamming"):
         qs = runs[metric]["q_sk"]
         st = runs[metric]["alive"]
@@ -903,24 +1000,29 @@ def kernel_phases(params: CabinParams, idx: torch.Tensor, val: torch.Tensor,
         before = build.LAUNCHES["topk_select"]
         gv, gi = topk_ops.topk_select(qb, st, BIG_K, d=SKETCH_DIM,
                                       metric=metric)
-        rounds = build.LAUNCHES["topk_select"] - before
+        passes = build.LAUNCHES["topk_select"] - before
         wv, wi = topk_ops.topk_select_ref(qb, st, BIG_K, d=SKETCH_DIM,
                                           metric=metric)
         check(torch.equal(gi, wi) and torch.equal(gv, wv),
               f"topk_select != plain at k = {BIG_K} ({metric})")
-        check(rounds == -(-BIG_K // topk_ops.MAX_K),
-              f"topk_select at k = {BIG_K} took {rounds} launches")
+        check(passes == 1, f"topk_select at k = {BIG_K} took {passes} "
+              f"passes, not one")
         big_ms = cuda_ms(lambda: topk_ops.topk_select(
             qb, st, BIG_K, d=SKETCH_DIM, metric=metric), 3)
         one_ms = cuda_ms(lambda: topk_ops.topk_select(
             qb, st, K, d=SKETCH_DIM, metric=metric), 3)
+        big_bound, _ = bound(topk_bytes(BIG_K_QUERIES, st.shape[0], w, BIG_K),
+                             topk_ops_needed(BIG_K_QUERIES, st.shape[0], w),
+                             rates)
+        big_plan = topk_ops.plan(BIG_K_QUERIES, st.shape[0], BIG_K, w, sms)
         big_k[metric] = {"queries": BIG_K_QUERIES, "rows": st.shape[0],
-                         "k": BIG_K, "rounds": rounds, "ms": big_ms,
-                         f"ms_k{K}": one_ms}
+                         "k": BIG_K, "passes": passes, "ms": big_ms,
+                         "bound_ms": big_bound, f"ms_k{K}": one_ms,
+                         "plan": big_plan._asdict()}
         log(f"[kernel:topk_select:{metric}:k={BIG_K}] {BIG_K_QUERIES} "
-            f"queries x {st.shape[0]} rows: bit-identical to the plain version "
-            f"in {rounds} rounds, kernel {big_ms:.4f} ms (k={K}, one round: "
-            f"{one_ms:.4f} ms)")
+            f"queries x {st.shape[0]} rows, plan {big_plan}: bit-identical "
+            f"to the plain version in {passes} pass, kernel {big_ms:.4f} ms, "
+            f"bound {big_bound:.4f} ms (k={K}: {one_ms:.4f} ms)")
     return out
 
 
@@ -939,6 +1041,7 @@ def smoke(seed: int, device=torch.device("cuda")) -> None:
     log(f"[build] {len(paths)} libraries in {time.perf_counter() - t0:.1f}s "
         f"({', '.join(p.name for p in paths.values())})")
     sass = flash_sass(paths["flash_attention"])
+    topk_usage = topk_res_usage(paths["topk_select"])
 
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -966,6 +1069,10 @@ def smoke(seed: int, device=torch.device("cuda")) -> None:
               f"kernel {kernel} was not launched on the index path")
     log(f"[main] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    batches = [pubmed_rows(N_TOPK_QUERIES, gen, device)
+               for _ in range(TIMED_RUNS)]
+    for m in ("cham", "hamming"):
+        runs[m]["topk_rates"] = time_topk(m, runs[m], batches, card)
     runs["dense_coo"] = (d_idx, d_val)
 
     qkv, lm_launches = lm_phase(seed, card)
@@ -975,7 +1082,7 @@ def smoke(seed: int, device=torch.device("cuda")) -> None:
     rates = peak_rates()
     kernels = kernel_phases(CabinParams.create(N_DIMS, SKETCH_DIM, seed=0),
                             idx, val, dense, runs, qkv, launches, rates,
-                            sass)
+                            sass, topk_usage)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -88,11 +88,16 @@ def test_pair_stats(dev, m, n, w):
 
 
 @pytest.mark.parametrize("metric", ["cham", "hamming"])
-@pytest.mark.parametrize("k", [1, 16, 17, 64, 65, 256, 257, 1024])
+@pytest.mark.parametrize("k", [1, 10, 16, 17, 64, 65, 256, 257, 1000, 1024,
+                               1025])
+@pytest.mark.parametrize("nq", [1, 5, 65, 300])
 @pytest.mark.parametrize("w", [1, 5, 128, 2000])
-def test_topk_select_edges(dev, metric, k, w):
-    rng = np.random.default_rng(k * 10 + w)
-    q = _words(rng, 5, w, dev)
+def test_topk_select_edges(dev, metric, k, nq, w):
+    """Every select shape (k at each CAP edge, and past one pass), query
+    tiles ragged or many, one word to a Cham table too large for shared
+    memory; ties across tiles and splits; fewer rows than k."""
+    rng = np.random.default_rng(k * 10 + w + nq)
+    q = _words(rng, nq, w, dev)
     b = _words(rng, 600, w, dev)
     b[300:400] = b[100:200]  # equal distances: the lower column must win
     for m in (600, 300, min(k - 1, 599)):  # k > m: (+inf, -1) fill
@@ -105,17 +110,35 @@ def test_topk_select_edges(dev, metric, k, w):
 
 
 def test_topk_select_cap(dev):
-    """k above the per-round cap runs ceil(min(k, m) / MAX_K) launches."""
+    """One pass (one select and one merge launch, counted once) up to
+    MAX_K keys; above it ceil(min(k, m) / MAX_K) passes."""
     rng = np.random.default_rng(3)
-    q, b = _words(rng, 3, 4, dev), _words(rng, 700, 4, dev)
-    for k, m, rounds in ((topk_ops.MAX_K + 1, 700, 2), (3 * topk_ops.MAX_K,
-                                                       700, 3),
-                         (1000, 300, 2), (10, 0, 0)):
+    q, b = _words(rng, 3, 4, dev), _words(rng, 2500, 4, dev)
+    for k, m, passes in ((1, 2500, 1), (topk_ops.MAX_K, 2500, 1),
+                         (topk_ops.MAX_K + 1, 2500, 2),
+                         (2 * topk_ops.MAX_K, 2500, 2),
+                         (3 * topk_ops.MAX_K, 2500, 3),
+                         (3000, 700, 1), (3000, 1500, 2), (10, 0, 0)):
         before = build.LAUNCHES["topk_select"]
         gv, gi = topk_ops.topk_select(q, b, k, d=128, m_valid=m)
-        assert build.LAUNCHES["topk_select"] - before == rounds
+        assert build.LAUNCHES["topk_select"] - before == passes, (k, m)
         wv, wi = topk_ops.topk_select_ref(q, b, k, d=128, m_valid=m)
         assert torch.equal(gi, wi) and torch.equal(gv, wv), (k, m)
+
+
+def test_topk_select_many_splits(dev):
+    """A store of many splits and query tiles, with every row repeated:
+    equal keys meet across split boundaries and in the merge."""
+    rng = np.random.default_rng(5)
+    q = _words(rng, 70, 16, dev)
+    half = _words(rng, 20000, 16, dev)
+    b = torch.cat([half, half])
+    for k in (1, 10, 300, 1024):
+        p = topk_ops.plan(70, b.shape[0], k, 16)
+        assert p.splits > 1
+        gv, gi = topk_ops.topk_select(q, b, k, d=500)
+        wv, wi = topk_ops.topk_select_ref(q, b, k, d=500)
+        assert torch.equal(gi, wi) and torch.equal(gv, wv), k
 
 
 @pytest.mark.parametrize("d", [1, 31, 4096, 4097, sparse_ops.MAX_D,
@@ -228,8 +251,8 @@ def test_each_wrapper_counts_one_launch_per_call(dev):
 
 @pytest.mark.parametrize("metric", ["cham", "hamming"])
 def test_engine_topk_any_k_on_cuda_equals_the_cpu(dev, metric):
-    """topk above the kernel's 256 keys a round, on CUDA and on the CPU,
-    against one sort of the alive store by the plain version."""
+    """topk up to and above the kernel's 1,024 keys a pass, on CUDA and on
+    the CPU, against one sort of the alive store by the plain version."""
     rng = np.random.default_rng(2)
     params = CabinParams.create(5000, 300, seed=3)
     engines = [QueryEngine(params, metric=metric, band_rows=64, device=d)
@@ -243,7 +266,7 @@ def test_engine_topk_any_k_on_cuda_equals_the_cpu(dev, metric):
     queries = ((idx[:5] + 1) % 5000, val[:5])
     mat, m_alive, alive_ids = engines[0].store.gather_alive()
     q_sk = engines[0]._sketch(queries)[0]
-    for k in (1, 10, 256, 257, 1024):
+    for k in (1, 10, 256, 257, 1024, 1025):
         (ci, cv), (gi, gv) = [e.topk(queries, k) for e in engines]
         assert np.array_equal(ci, gi) and np.array_equal(cv, gv), k
         bv, bpos = topk_ops.topk_select_ref(q_sk, mat[:m_alive].contiguous(),

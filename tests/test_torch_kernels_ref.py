@@ -6,7 +6,9 @@ oracles, on the same numpy inputs.
   * topk_select (B2) vs `core.allpairs._topk_rows_impl` (through
     `topk_rows(mode="popcount")`) and `topk_select_ref`, not the Pallas
     kernel, whose sentinel fault is a known seed failure.  Ids and Hamming
-    values exact, Cham values at rtol 1e-6 of their terms.
+    values exact, Cham values at rtol 1e-6 of their terms.  The kernel's
+    split-then-merge pass, as its plain version computes it, against the
+    one sort, and the launch plan at the main path's shapes.
   * dist_matrix, threshold_pairs and topk_rows_banded, which run on these
     kernels, vs their JAX twins.
 """
@@ -136,20 +138,20 @@ def test_topk_select_ref_matches_reference(metric, q, n, w, k, m_valid):
 
 
 @pytest.mark.parametrize("metric", ["cham", "hamming"])
-@pytest.mark.parametrize("k", [1, 255, 256, 257, 512, 1024, "m"])
+@pytest.mark.parametrize("k", [1, 1023, 1024, 1025, 2048, 3000, "m"])
 def test_topk_select_rounds_equal_one_sort(metric, k):
-    """Any k runs as rounds of MAX_K keys, each floored at the last key of
-    the round before.  On the CPU each round is `topk_round_ref` (the
-    kernel's round with the floor applied), so the wrapper's round loop is
-    the one the card runs; joined, the rounds equal the one-sort plain
-    version bit for bit, and the JAX package's oracle (ids and Hamming
-    exact, Cham at its term tolerance).  Rows 600-699 repeat rows
-    100-199, so equal distances must go to the lower column across round
-    boundaries."""
+    """Any k runs as passes of MAX_K keys, each floored at the last key of
+    the pass before.  On the CPU each pass is `topk_split_round_ref` under
+    the wrapper's plan (the kernel's split and merge, with the floor
+    applied), so the wrapper's pass loop is the one the card runs; joined,
+    the passes equal the one-sort plain version bit for bit, and the JAX
+    package's oracle (ids and Hamming exact, Cham at its term tolerance).
+    Rows 1600-1699 repeat rows 100-199, so equal distances must go to the
+    lower column across pass boundaries."""
     rng = np.random.default_rng(17)
-    a, b = _words(rng, 5, 8), _words(rng, 1100, 8)
-    b[600:700] = b[100:200]
-    for m in (1100, 900):
+    a, b = _words(rng, 5, 8), _words(rng, 2600, 8)
+    b[1600:1700] = b[100:200]
+    for m in (2600, 2100):
         kk = m if k == "m" else k
         gv, gi = ttopk_ops.topk_select(T(a), T(b), kk, d=D, metric=metric,
                                        m_valid=m)
@@ -161,6 +163,92 @@ def test_topk_select_rounds_equal_one_sort(metric, k):
                                metric=metric, m_valid=m)
             _check_topk(metric, a, b[:m], gv.numpy(), gi.numpy(),
                         np.asarray(ov), np.asarray(oi))
+
+
+# (splits, rows_per_split, m_valid): one split; splits shorter than k;
+# trailing empty splits; a split boundary inside the repeated rows; fewer
+# valid rows than supplied
+SPLITS = [(1, 300, None), (3, 100, None), (40, 8, None), (7, 64, 130),
+          (5, 61, None), (300, 1, None), (4, 50, 151)]
+
+
+@pytest.mark.parametrize("metric", ["cham", "hamming"])
+@pytest.mark.parametrize("splits,rows,m_valid", SPLITS)
+@pytest.mark.parametrize("k", [1, 12, 130])
+def test_split_then_merge_equals_one_sort(metric, splits, rows, m_valid, k):
+    """The kernel's pass as the plain version splits it (per-split k-best
+    lists, then their merge) equals the one sort bit for bit, with and
+    without a floor key, and the JAX package's oracle.  Rows 150-209
+    repeat rows 20-79: ties across split boundaries go to the lower
+    column."""
+    rng = np.random.default_rng(splits * 1000 + rows + k)
+    a, b = _words(rng, 6, 5), _words(rng, 300, 5)
+    b[150:210] = b[20:80]
+    m = b.shape[0] if m_valid is None else m_valid
+    if splits * rows < m:
+        with pytest.raises(ValueError, match="cover"):
+            ttopk.topk_split_round_ref(T(a), T(b), k, d=D, metric=metric,
+                                       m_valid=m, splits=splits,
+                                       rows_per_split=rows)
+        return
+    kw = dict(d=D, metric=metric, m_valid=m)
+    sv, si = ttopk.topk_split_round_ref(T(a), T(b), k, **kw, splits=splits,
+                                        rows_per_split=rows)
+    ov, oi = ttopk.topk_round_ref(T(a), T(b), k, **kw)
+    assert torch.equal(si, oi) and torch.equal(sv, ov)
+    wv, wi = ttopk.topk_select_ref(T(a), T(b), k, **kw)
+    assert torch.equal(si, wi) and torch.equal(sv, wv)
+    if k <= m:
+        jv, ji = jtopk_ref(jnp.asarray(a), jnp.asarray(b), k=k, **kw)
+        _check_topk(metric, a, b[:m], sv.numpy(), si.numpy(), np.asarray(jv),
+                    np.asarray(ji))
+    # floored at each query's 5th key: the next keys, as one sort gives them
+    floor = ttopk_ops._last_key(ov[:, :5], oi[:, :5])
+    fv, fi = ttopk.topk_split_round_ref(T(a), T(b), k, **kw, floor=floor,
+                                        splits=splits, rows_per_split=rows)
+    gv, gi = ttopk.topk_round_ref(T(a), T(b), k, **kw, floor=floor)
+    assert torch.equal(fi, gi) and torch.equal(fv, gv)
+    want = min(k, m) - 5 if min(k, m) >= 5 else 0
+    if want:
+        assert torch.equal(fi[:, :want], wi[:, 5:5 + want])
+
+
+def test_split_lists_hold_each_ranges_best():
+    """The select launch's lists: split s holds the k smallest keys of its
+    own column range, ascending, padded past the range's rows."""
+    keys = torch.tensor([[50, 10, 40, 30, 20, 60, 5]], dtype=torch.int64)
+    pad = ttopk.KEY_PAD
+    lists = ttopk.split_lists_ref(keys, 2, 4, 2)
+    assert lists.tolist() == [[[10, 50], [30, 40], [20, 60], [5, pad]]]
+    assert ttopk.merge_lists_ref(lists, 3).tolist() == [[5, 10, 20]]
+    assert ttopk.split_lists_ref(keys, 3, 1, 7).tolist() == [[[5, 10, 20]]]
+
+
+@pytest.mark.parametrize("nq,m,k,w,want", [
+    # the main path: 256 queries over the alive store, k = 10
+    (256, 523101, 10, 128, (64, 64, 128, 66, 7936, 1351680)),
+    # the largest band-walk chunk, and a small second chunk
+    (256, 487424, 10, 128, (64, 64, 128, 66, 7424, 1351680)),
+    (256, 35000, 10, 128, (64, 64, 128, 61, 576, 1249280)),
+    # k = 1,024 for 16 queries: 8-query tiles, 61 splits of >= 8k rows;
+    # above CAP = 128 one block a SM, so one split per SM and query tile
+    (16, 523101, 1024, 128, (8, 512, 2048, 61, 8704, 7995392)),
+    (16, 523101, 257, 128, (16, 256, 1024, 128, 4096, 4210688)),
+    (16, 523101, 129, 128, (32, 128, 512, 132, 3968, 2179584)),
+    (16, 523101, 65, 128, (64, 64, 256, 132, 3968, 1098240)),
+    # edges: no rows, fewer rows than k, one query, one word a row
+    (5, 0, 10, 128, (64, 64, 128, 1, 0, 400)),
+    (5, 7, 10, 128, (64, 64, 128, 1, 64, 400)),
+    (1, 523101, 10, 128, (64, 64, 128, 264, 1984, 21120)),
+    (1, 523101, 10, 1, (64, 64, 128, 7, 74752, 560)),
+])
+def test_plan(nq, m, k, w, want):
+    p = ttopk_ops.plan(nq, m, k, w)
+    assert tuple(p) == want
+    assert p.splits * p.rows_per_split >= m
+    assert m == 0 or (p.splits - 1) * p.rows_per_split < m  # none empty
+    assert p.rows_per_split % p.bn == 0 and p.cap >= 2 * k
+    assert p.bq * p.cap * 8 <= 128 * 1024 and p.cap - p.bn >= k
 
 
 @pytest.mark.parametrize("metric", ["cham", "hamming"])
