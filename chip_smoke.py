@@ -75,12 +75,21 @@ Phases, each fatal on failure (exit code other than 0, no result line):
               shared-memory bitmap), bit for bit; `cuobjdump -sass` of the
               built flash library must show HMMA (tensor-core)
               instructions in every bf16 instance, whose registers / stack
-              / local memory (`-res-usage`) are printed; and every B2
-              select instance must show IMMA (int8 tensor-core)
-              instructions and use no stack and no local memory.  B2's
+              / local memory (`-res-usage`) are printed; every B2 select
+              instance must show IMMA (int8 mma.sync) and every B3
+              pair-stats instance IGMMA (int8 wgmma) tensor-core
+              instructions, and they and every B1 instance use no stack
+              and no local memory.  B3 is also held against its plain
+              version at ragged edge shapes, every output switch.  B2's
               plan (query tile BQ, splits S, scratch bytes) is printed for
-              each of its shapes; B2 at the main shape, B6 and SDPA are
-              timed over 5 runs each.
+              each of its shapes, and B1's (slots a load, rows a block).
+              B1, B2 at the main shape, B3 at both of the main path's
+              calls (inner only for cham, hamming only for hamming), B6
+              and SDPA are timed over 5 runs each; B1 beside one
+              streaming add of its two inputs (a yardstick of the memory
+              rate at this size, not the same function) and over four
+              chunks in one launch (its rate apart from its per-launch
+              cost).
               Kernel time, plain time and the bound: the largest of the
               bytes moved over 3.35 TB/s (the H100 SXM's HBM rate), the
               32-bit integer operations over 64 per clock per SM and the
@@ -88,10 +97,10 @@ Phases, each fatal on failure (exit code other than 0, no result line):
               Programming Guide, arithmetic instruction throughput,
               compute capability 9.0) at this card's SM count and maximum
               SM clock, bf16 flops over 989 TFLOP/s and int8 operations
-              (B2's inner products) over 1,979 TOP/s (data sheet).  For
-              B6 also the time of PyTorch's scaled_dot_product_attention
-              on the same inputs (library_ms, a yardstick the port never
-              calls).
+              (B2's and B3's inner products) over 1,979 TOP/s (data
+              sheet).  For B6 also the time of PyTorch's
+              scaled_dot_product_attention on the same inputs
+              (library_ms, a yardstick the port never calls).
  7. output  - the nvidia-smi line, one JSON line listing the kernels, and
               last the line {"ok": true, "device": {...}}.
 """
@@ -141,8 +150,8 @@ N_TOPK_QUERIES, N_RADIUS_QUERIES, N_PAIRWISE_IDS = 256, 64, 4096
 # queries; Cabin above the shared-memory bitmap (d > 1,859,584)
 BIG_K, BIG_K_QUERIES = 1024, 16
 BIG_D, BIG_D_ROWS = 2_000_001, 256
-# timed runs of B2 and B6 and of B6's library yardstick, prefills per LM
-# path, and topk calls per metric
+# timed runs of B1, B2, B3 and B6 and of B6's library yardstick, prefills
+# per LM path, and topk calls per metric
 TIMED_RUNS = 5
 INDEX_KERNELS = ("cabin_build", "cabin_build_sparse", "pair_stats",
                  "row_popcount", "topk_select")
@@ -693,6 +702,38 @@ def topk_ops_needed(nq: int, m: int, w: int) -> dict:
     return {"int8": 2 * 32 * nq * m * w, "int32": m * w, "popc": m * w}
 
 
+def pair_ops_needed(m: int, n: int, w: int) -> dict:
+    """Operations all-pairs inner products of m x n rows of w words need
+    on the int8 tensor cores, which B3 runs them on: per (row, row, word)
+    32 multiply-adds of 0/1 bytes, 2 operations each; per (row, word) a
+    popcount and an add for the row weights that hamming reads."""
+    return {"int8": 2 * 32 * m * n * w, "popc": (m + n) * w,
+            "int32": (m + n) * w}
+
+
+def pair_stats_edges(rows: torch.Tensor) -> int:
+    """B3 against its plain version, every output switch, at ragged
+    shapes around its 256-row x 64-query tile and its 16-word steps, on
+    the card; returns the number of shapes."""
+    shapes = [(m, n, w) for m in (1, 65) for n in (127, 4097)
+              for w in (3, 33, 128)]
+    for m, n, w in shapes:
+        a = rows[:m, :w].contiguous()
+        b = rows[-n:, -w:].contiguous()
+        for op_inner, op_ham in ((True, True), (True, False), (False, True)):
+            got = hamming_ops.pair_stats(a, b, op_inner=op_inner,
+                                         op_ham=op_ham)
+            want = hamming_ops.pair_stats_ref(a, b, op_inner=op_inner,
+                                              op_ham=op_ham)
+            check(all((g is None and r is None) or torch.equal(g, r)
+                      for g, r in zip(got, want)),
+                  f"pair_stats != plain version at {(m, n, w)} "
+                  f"(inner {op_inner}, hamming {op_ham})")
+    log(f"[kernel:pair_stats] bit-identical to the plain version at "
+        f"{len(shapes)} edge shapes (m, n, w) {shapes}, every output switch")
+    return len(shapes)
+
+
 def topk_bytes(nq: int, m: int, w: int, k: int) -> int:
     """The queries and the m valid rows read once, the Cham table, and
     k (value, index) pairs per query written."""
@@ -729,12 +770,15 @@ def flash_sass(lib: Path) -> dict:
             "hmma_in_f32_instances": f32}
 
 
-def topk_res_usage(lib: Path) -> dict:
+def check_res_usage(lib: Path, kernel: str, what: str, instances: int,
+                    tensor_ops: tuple = ()) -> dict:
     """Registers, stack and local memory (`cuobjdump -res-usage`) and the
-    IMMA (int8 tensor-core) instructions (`cuobjdump -sass`) of every B2
-    select instance in the built library; fails if any instance keeps a
-    stack frame or local memory (its k-best would then spill) or has no
-    IMMA."""
+    int8 tensor-core instructions (`cuobjdump -sass` lines holding one of
+    `tensor_ops`: IMMA for mma.sync, IGMMA for wgmma) of every template
+    instance of `kernel` in a built library, keyed by the instance's
+    mangled template arguments.  Fails unless there are `instances` of
+    them, none keeps a stack frame or local memory (a spill), and, given
+    `tensor_ops`, each runs such instructions."""
     tool = str(Path(build.find_nvcc()).with_name("cuobjdump"))
 
     def dump(flag: str) -> str:
@@ -742,12 +786,12 @@ def topk_res_usage(lib: Path) -> dict:
                               text=True, check=True).stdout
 
     def instance(line: str) -> str:
-        return line.split("topk_split_kernel", 1)[1].split("EEEv")[0]
+        return line.split(kernel, 1)[1].split("EEEv")[0]
 
     lines = dump("-res-usage").splitlines()
     usage = {}
     for i, line in enumerate(lines):
-        if ("topk_split_kernel" in line and i + 1 < len(lines)
+        if (kernel in line and i + 1 < len(lines)
                 and "REG:" in lines[i + 1]):
             fields = dict(f.split(":", 1) for f in lines[i + 1].split()
                           if ":" in f)
@@ -755,24 +799,28 @@ def topk_res_usage(lib: Path) -> dict:
                                                                  "LOCAL")}
     for part in dump("-sass").split("Function : ")[1:]:
         name = part.split(None, 1)[0]
-        if "topk_split_kernel" in name and instance(name) in usage:
-            usage[instance(name)]["IMMA"] = sum(
-                "IMMA" in line for line in part.splitlines())
-    log(f"[build:topk_select] select instances (BQ, CAP, cham) -> registers "
-        f"/ stack / local bytes / IMMA instructions: {usage}")
-    check(len(usage) == 10, f"expected 10 select instances, got {usage}")
+        if kernel in name and instance(name) in usage:
+            usage[instance(name)]["tensor"] = sum(
+                any(op in line for op in tensor_ops)
+                for line in part.splitlines())
+    log(f"[build:{lib.name.split('-')[0]}] {kernel} instances ({what}) -> "
+        f"registers / stack / local bytes / {'/'.join(tensor_ops) or 'no'} "
+        f"tensor-core instructions: {usage}")
+    check(len(usage) == instances,
+          f"expected {instances} {kernel} instances, got {usage}")
     check(all(u["STACK"] == 0 and u["LOCAL"] == 0 for u in usage.values()),
-          f"a B2 select instance uses a stack or local memory: {usage}")
-    check(all(u.get("IMMA", 0) > 0 for u in usage.values()),
-          f"a B2 select instance has no IMMA (int8 tensor-core) "
-          f"instruction: {usage}")
+          f"a {kernel} instance uses a stack or local memory: {usage}")
+    check(not tensor_ops or all(u.get("tensor", 0) > 0
+                                for u in usage.values()),
+          f"a {kernel} instance has no {'/'.join(tensor_ops)} (int8 "
+          f"tensor-core) instruction: {usage}")
     return usage
 
 
 def kernel_phases(params: CabinParams, idx: torch.Tensor, val: torch.Tensor,
                   dense: torch.Tensor, runs: dict, qkv: tuple,
                   launches: dict, rates: dict, sass: dict,
-                  topk_usage: dict) -> list[dict]:
+                  usage: dict) -> list[dict]:
     out = []
     w = packing.packed_width(SKETCH_DIM)
     rate_text = (f"HBM 3.35e12 B/s; int32 {rates['int32']:.4g} op/s, popc "
@@ -802,8 +850,34 @@ def kernel_phases(params: CabinParams, idx: torch.Tensor, val: torch.Tensor,
     check(torch.equal(got, want), "cabin_build_sparse != plain version")
     live = int((cv != 0).sum())
     psi_hits = int(hashing.psi_bits(ci, cv, params.psi_seed).sum())
-    record("cabin_build_sparse", 0,
-           cuda_ms(lambda: sparse_ops.cabin_build_sparse(ci, cv, **kw), 20),
+    b1_runs = [cuda_ms(lambda: sparse_ops.cabin_build_sparse(ci, cv, **kw), 20)
+               for _ in range(TIMED_RUNS)]
+    b1_plan = sparse_ops.plan(M_SLOTS, SKETCH_DIM, ci.data_ptr(),
+                              cv.data_ptr())
+    # the memory rate a plain streaming pass reaches at this size, as a
+    # yardstick: one elementwise add reads both inputs and writes one
+    # (not the same function; the port never calls it)
+    stream_ms = cuda_ms(lambda: torch.add(ci, cv), 20)
+    b1_read = (ci.numel() + cv.numel() + CHUNK * w) * 4  # every index read
+    stream_bytes = 3 * ci.numel() * 4
+    # four chunks in one launch: the rate at which B1 moves more bytes,
+    # apart from what one launch costs whatever its size
+    fi, fv = idx[:4 * CHUNK].contiguous(), val[:4 * CHUNK].contiguous()
+    check(torch.equal(sparse_ops.cabin_build_sparse(fi, fv, **kw),
+                      sparse_ops.cabin_build_sparse_ref(fi, fv, **kw)),
+          "cabin_build_sparse != plain version on four chunks")
+    four_ms = cuda_ms(lambda: sparse_ops.cabin_build_sparse(fi, fv, **kw), 10)
+    b1_ms = float(np.median(b1_runs))
+    log(f"[kernel:cabin_build_sparse] {CHUNK} x {M_SLOTS} slots ({live} "
+        f"live), d={SKETCH_DIM}, plan {b1_plan}: {TIMED_RUNS} runs of 20 "
+        f"launches {b1_runs} ms (median {b1_ms:.4f} ms, "
+        f"{b1_read / b1_ms / 1e9:.3f} TB/s over the {b1_read} bytes it "
+        f"moves); a streaming add of the two inputs {stream_ms:.4f} ms "
+        f"({stream_bytes / stream_ms / 1e9:.3f} TB/s); four chunks in one "
+        f"launch {four_ms:.4f} ms (bit-identical to the plain version), "
+        f"{3 * b1_read / (four_ms - b1_ms) / 1e9:.3f} TB/s for the three "
+        f"more chunks")
+    record("cabin_build_sparse", 0, b1_ms,
            cuda_ms(lambda: sparse_ops.cabin_build_sparse_ref(ci, cv, **kw), 2),
            # every value read, an index only where its value is not 0,
            # every sketch word written
@@ -812,7 +886,10 @@ def kernel_phases(params: CabinParams, idx: torch.Tensor, val: torch.Tensor,
            # category multiply, shift, add and xor, the bit test (22);
            # pi where psi is 1: the key add, one fmix32, the modulo, and
            # the bit's shift, mask, shift and OR (14)
-           {"int32": live * 22 + psi_hits * 14})
+           {"int32": live * 22 + psi_hits * 14}, ms_runs=b1_runs,
+           plan=b1_plan._asdict(), res_usage=usage["cabin_build_sparse"],
+           bytes_moved=b1_read, stream_ms=stream_ms,
+           stream_bytes=stream_bytes, four_chunks_ms=four_ms)
 
     alive = runs["cham"]["alive"]
     q_sk = runs["cham"]["q_sk"]
@@ -828,21 +905,35 @@ def kernel_phases(params: CabinParams, idx: torch.Tensor, val: torch.Tensor,
            n_alive * w * 4 + n_alive * 4,
            {"int32": n_alive * w, "popc": n_alive * w})
 
-    # B3: the radius scan's tile batch, 64 queries x 65,536 rows
+    # B3: the radius scan's tile batch, 64 queries x 65,536 rows, as the
+    # main path calls it: inner only (cham), hamming only (hamming); both
+    # at once checked too
     qa = q_sk[:N_RADIUS_QUERIES].contiguous()
     rows = alive[:65536].contiguous()
     gi, gh = hamming_ops.pair_stats(qa, rows)
     wi, wh = hamming_ops.pair_stats_ref(qa, rows)
     check(torch.equal(gi, wi) and torch.equal(gh, wh),
           "pair_stats != plain version")
+    check(torch.equal(hamming_ops.pair_stats(qa, rows, op_ham=False)[0], wi)
+          and torch.equal(hamming_ops.pair_stats(qa, rows,
+                                                 op_inner=False)[1], wh),
+          "pair_stats with one output != plain version")
+    b3_runs = {metric: [cuda_ms(lambda: hamming_ops.pair_stats(
+        qa, rows, op_inner=metric == "cham", op_ham=metric == "hamming"), 10)
+        for _ in range(TIMED_RUNS)] for metric in ("cham", "hamming")}
+    for metric, ms in b3_runs.items():
+        log(f"[kernel:pair_stats:{metric}] {qa.shape[0]} x {rows.shape[0]} "
+            f"x {w} words, {'inner' if metric == 'cham' else 'hamming'} "
+            f"only: {TIMED_RUNS} runs of 10 launches {ms} ms (median "
+            f"{float(np.median(ms)):.4f} ms)")
+    edges = pair_stats_edges(rows)
     mq, nr = qa.shape[0], rows.shape[0]
-    record("pair_stats", 0,
-           cuda_ms(lambda: hamming_ops.pair_stats(qa, rows, op_ham=False), 10),
+    record("pair_stats", 0, float(np.median(b3_runs["cham"])),
            cuda_ms(lambda: hamming_ops.pair_stats_ref(qa, rows, op_ham=False),
                    1),
-           (mq + nr) * w * 4 + mq * nr * 4,
-           # per (query, row, word): AND, popcount, add
-           {"int32": 2 * mq * nr * w, "popc": mq * nr * w})
+           (mq + nr) * w * 4 + mq * nr * 4, pair_ops_needed(mq, nr, w),
+           hamming_ms=float(np.median(b3_runs["hamming"])), ms_runs=b3_runs,
+           edge_shapes=edges, res_usage=usage["pair_stats"])
 
     # B2: 256 queries against the whole alive store, k = 10, both metrics,
     # and each metric's largest band-walk chunk (rows past m_valid masked)
@@ -897,7 +988,7 @@ def kernel_phases(params: CabinParams, idx: torch.Tensor, val: torch.Tensor,
            topk_ops_needed(nq, n_alive, w), ms_runs=ms_runs,
            hamming_ms=float(np.median(ms_runs["hamming"])),
            plan=topk_ops.plan(nq, n_alive, K, w, sms)._asdict(),
-           band_chunks=chunks, big_k=big_k, res_usage=topk_usage)
+           band_chunks=chunks, big_k=big_k, res_usage=usage["topk_select"])
 
     # B5: the dense ingest, 4,096 x 141,043 -> (4,096, 128), also equal to
     # the sparse plain version of the same rows
@@ -1041,7 +1132,16 @@ def smoke(seed: int, device=torch.device("cuda")) -> None:
     log(f"[build] {len(paths)} libraries in {time.perf_counter() - t0:.1f}s "
         f"({', '.join(p.name for p in paths.values())})")
     sass = flash_sass(paths["flash_attention"])
-    topk_usage = topk_res_usage(paths["topk_select"])
+    usage = {
+        "topk_select": check_res_usage(
+            paths["topk_select"], "topk_split_kernel", "BQ, CAP, cham", 10,
+            ("IMMA",)),
+        "pair_stats": check_res_usage(
+            paths["hamming"], "pair_stats_kernel", "inner, hamming", 3,
+            ("IGMMA", "IMMA")),
+        "cabin_build_sparse": check_res_usage(
+            paths["cabin_build_sparse"], "cabin_sparse_kernel",
+            "slots a load, bitmap in device memory", 6)}
 
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -1082,7 +1182,7 @@ def smoke(seed: int, device=torch.device("cuda")) -> None:
     rates = peak_rates()
     kernels = kernel_phases(CabinParams.create(N_DIMS, SKETCH_DIM, seed=0),
                             idx, val, dense, runs, qkv, launches, rates,
-                            sass, topk_usage)
+                            sass, usage)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

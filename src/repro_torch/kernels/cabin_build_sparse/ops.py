@@ -1,11 +1,12 @@
 """Wrapper of the sparse Cabin kernel (`csrc/cabin_build_sparse.cu`).
 
-A CUDA tensor launches the kernel; a CPU tensor takes the plain version in
-`ref.py`.  Nothing else falls back."""
+A CUDA tensor launches the kernel under `plan`; a CPU tensor takes the
+plain version in `ref.py`.  Nothing else falls back."""
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -18,10 +19,36 @@ from repro_torch.kernels.cabin_build_sparse.ref import cabin_build_sparse_ref
 MAX_D = 32 * (232448 // 4)
 # d is passed to the kernels as a C int
 MAX_KERNEL_D = 2**31 - 1
+# rows a block of 256 threads sketches at once, one group of threads and
+# one shared-memory bitmap each: a warp a row where eight bitmaps fit
+MAX_ROWS_PER_BLOCK = 8
 
 _ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
          ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
-         ctypes.c_void_p)
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+
+
+class Plan(NamedTuple):
+    vec: int  # COO slots a thread loads at once (1, 2 or 4 int32)
+    rows_per_block: int  # groups of 256 / rows_per_block threads, a row each
+    device_bitmap: bool  # the bitmap is the output row in device memory
+
+
+def plan(m: int, d: int, *addresses: int) -> Plan:
+    """The kernel's launch plan for rows of m slots at data addresses
+    `addresses` (bytes): the widest load (16, 8 or 4 bytes) that m and
+    every address allow; as many rows a block as have their ceil(d/32)-word
+    bitmaps fit shared memory together (up to MAX_ROWS_PER_BLOCK), or above
+    MAX_D one row a block with the bitmap in device memory."""
+    vec = next(v for v in (4, 2, 1)
+               if m % v == 0 and all(a % (4 * v) == 0 for a in addresses))
+    if d > MAX_D:
+        return Plan(vec, 1, True)
+    words = (d + 31) // 32
+    rows = MAX_ROWS_PER_BLOCK
+    while rows > 1 and rows * words > MAX_D // 32:
+        rows //= 2
+    return Plan(vec, rows, False)
 
 
 def cabin_build_sparse(indices: torch.Tensor, values: torch.Tensor, *,
@@ -46,10 +73,12 @@ def cabin_build_sparse(indices: torch.Tensor, values: torch.Tensor, *,
                       device=indices.device)
     if n == 0:
         return out
+    p = plan(m, d, indices.data_ptr(), values.data_ptr())
     fn = build.function("cabin_build_sparse", "cabin_build_sparse_launch",
                         _ARGS)
     code = fn(build.ptr(indices), build.ptr(values), build.ptr(out), n, m, d,
-              psi_seed & 0xFFFFFFFF, pi_seed & 0xFFFFFFFF,
+              psi_seed & 0xFFFFFFFF, pi_seed & 0xFFFFFFFF, p.vec,
+              p.rows_per_block, int(p.device_bitmap),
               build.stream_ptr(indices.device))
     build.check("cabin_build_sparse", "cabin_build_sparse", code)
     build.LAUNCHES["cabin_build_sparse"] += 1

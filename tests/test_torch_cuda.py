@@ -25,7 +25,8 @@ import torch
 
 from repro_torch.configs.base import ParallelConfig, reduced_for_smoke
 from repro_torch.configs.registry import get_config
-from repro_torch.core.cabin import CabinParams
+from repro_torch.core import allpairs
+from repro_torch.core.cabin import CabinParams, sketch_sparse
 from repro_torch.index import QueryEngine
 from repro_torch.kernels import build
 from repro_torch.kernels.cabin_build import ops as dense_ops
@@ -67,6 +68,56 @@ def test_cabin_build_sparse_every_d(dev, d):
     assert torch.equal(got, sparse_ops.cabin_build_sparse_ref(i, v, **kw))
 
 
+def _coo_rows(rng, n, m, dev, offset=0):
+    """(n, m) padded-COO rows: indices anywhere in int32, categories up to
+    2**31 - 1 and negative, about a third of each row's tail padded, every
+    fifth row all padding.  `offset` int32s in front of the data move its
+    start off 16 bytes."""
+    idx = rng.integers(-(2**31), 2**31, size=(n, m)).astype(np.int32)
+    val = rng.integers(-3, 2**31, size=(n, m)).astype(np.int32)
+    val[:, m - m // 3:] = 0
+    val[::5] = 0
+    val[rng.random((n, m)) < 0.1] = 0
+
+    def place(x):
+        flat = torch.zeros(offset + x.size, dtype=torch.int32, device=dev)
+        flat[offset:] = torch.from_numpy(x.ravel()).to(dev)
+        return flat[offset:].view(n, m)
+
+    return place(idx), place(val)
+
+
+# rows of several waves of the kernel's row groups at each d: one warp a
+# row at d <= 232,448 (about 3,200 resident on an H100), one block of 256
+# threads a row at MAX_D and above (hundreds)
+CABIN_MANY = {1: 20000, 4096: 20000, sparse_ops.MAX_D: 400,
+              sparse_ops.MAX_D + 1: 1700}
+
+
+@pytest.mark.parametrize("shape", ["1x1", "13x297", "37x298", "9x296",
+                                   "9x296+1", "3x5000", "many"])
+@pytest.mark.parametrize("d", sorted(CABIN_MANY))
+def test_cabin_build_sparse_rows_and_widths(dev, d, shape):
+    """Row counts that are not a multiple of the rows a block sketches,
+    m odd, m = 1, m wider than one chunk of slots, all-zero rows, inputs
+    that start off 16 bytes ("+1"), and rows of several waves; each d on
+    either side of the kernel's paths.  The plain version runs in row
+    blocks (it holds (rows, d) int64)."""
+    rows, m = ((CABIN_MANY[d], 298) if shape == "many"
+               else map(int, shape.split("+")[0].split("x")))
+    offset = 1 if shape.endswith("+1") else 0
+    rng = np.random.default_rng(d % 997 + rows + m)
+    i, v = _coo_rows(rng, rows, m, dev, offset)
+    kw = dict(d=d, psi_seed=0x7FFFFFFF, pi_seed=12345)
+    got = sparse_ops.cabin_build_sparse(i, v, **kw)
+    step = max(1, (1 << 27) // (8 * d))
+    for r0 in range(0, rows, step):
+        want = sparse_ops.cabin_build_sparse_ref(i[r0:r0 + step],
+                                                 v[r0:r0 + step], **kw)
+        assert torch.equal(got[r0:r0 + step], want), r0
+    assert not got[::5].any()  # all-padding rows sketch to zero
+
+
 @pytest.mark.parametrize("m,w", [(1, 1), (7, 33), (1000, 128), (3, 2000)])
 def test_row_popcount(dev, m, w):
     x = _words(np.random.default_rng(m), m, w, dev)
@@ -74,10 +125,14 @@ def test_row_popcount(dev, m, w):
                        hamming_ops.row_popcount_ref(x))
 
 
-@pytest.mark.parametrize("m,n,w", [(1, 1, 1), (65, 130, 33), (64, 64, 128),
-                                   (3, 200, 1000)])
+@pytest.mark.parametrize("w", [1, 3, 33, 128, 2000])
+@pytest.mark.parametrize("n", [1, 127, 4097])
+@pytest.mark.parametrize("m", [1, 7, 64, 65, 256])
 def test_pair_stats(dev, m, n, w):
-    rng = np.random.default_rng(m + n)
+    """Rows of a on either side of the 64-row tile, rows of b around the
+    256-row tile, words around the 16-word step and not a multiple of 4,
+    every output switch."""
+    rng = np.random.default_rng(m * 10007 + n * 31 + w)
     a, b = _words(rng, m, w, dev), _words(rng, n, w, dev)
     for op_inner, op_ham in ((True, True), (True, False), (False, True)):
         got = hamming_ops.pair_stats(a, b, op_inner=op_inner, op_ham=op_ham)
@@ -85,6 +140,43 @@ def test_pair_stats(dev, m, n, w):
                                           op_ham=op_ham)
         for g, r in zip(got, want):
             assert (g is None and r is None) or torch.equal(g, r)
+
+
+def test_pair_stats_unaligned_rows(dev):
+    """Rows that start off 16 bytes take the 4-byte copies."""
+    rng = np.random.default_rng(11)
+    flat = _words(rng, 1, 70 * 64 + 1, dev)[0]
+    a = flat[1:1 + 6 * 64].view(6, 64)
+    b = flat[1 + 6 * 64:].view(64, 64)
+    got = hamming_ops.pair_stats(a, b)
+    want = hamming_ops.pair_stats_ref(a, b)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("metric", ["cham", "hamming"])
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_threshold_pairs_on_cuda_equals_the_cpu(dev, metric, symmetric):
+    """The radius scan's tile batches on the pair-stats kernel, against the
+    same scan over the plain versions on the CPU: the same pairs in the
+    same order."""
+    rng = np.random.default_rng(4)
+    params = CabinParams.create(5000, 300, seed=3)
+    idx = rng.integers(0, 5000, size=(700, 40)).astype(np.int32)
+    val = rng.integers(0, 6, size=(700, 40)).astype(np.int32)
+    sk = sketch_sparse(params, torch.from_numpy(idx), torch.from_numpy(val))
+    a, b = sk[:300], (None if symmetric else sk[300:])
+    # halfway between two distinct distances a tenth of the way up
+    vals = np.unique(hamming_ops.dist_matrix(a, sk, 300, metric=metric))
+    cut = len(vals) // 10
+    kw = dict(d=300, threshold=float((vals[cut] + vals[cut + 1]) / 2),
+              metric=metric, block=64)
+    if not symmetric:
+        kw.update(n_valid=290, m_valid=377)
+    want = allpairs.threshold_pairs(a, b, **kw)
+    got = allpairs.threshold_pairs(a.to(dev), None if b is None else
+                                   b.to(dev), **kw)
+    assert len(want) > 0
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("metric", ["cham", "hamming"])
