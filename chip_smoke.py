@@ -35,7 +35,29 @@ Phases, each fatal on failure (exit code other than 0, no result line):
               queries (none answered from the engine's result cache; each
               held against brute force), and each rate is printed beside
               the median.
- 5. lm      - llama3-8B at full width and depth (32 layers, d_model 4096,
+ 5. frontdoor - the cham engine of the main phase behind one
+              repro_torch.serve.FrontDoor: 4 client threads submit 256
+              fresh COO topk queries (k=10) and 64 radius queries (the
+              main phase's r) in requests of 8 rows; the launch counts
+              are set to 0 just before and B1-B4 must have risen just
+              after.  Every answer must equal a direct engine.topk /
+              engine.radius on the same queries bit for bit, and 16 of
+              them the brute-force scan.  An expired Deadline must give
+              topk_budgeted a partial answer with cert_gap > 0, unfilled
+              slots (-1, inf) and every returned id at its true distance;
+              a deadline that never fires must give the exact answer,
+              through the door and through topk_budgeted.  render_prom's
+              engine_query_latency_ms counts must equal the calls made,
+              and export_trace must write Chrome JSON holding the
+              engine.topk and frontdoor.flush spans.  A COO batch of
+              width 0 goes through add_sparse and topk of a small engine
+              on the card (no B1 launch of width 0; answers against brute
+              force), and B2 takes q, b and both as views off 16 bytes at
+              k = 10 and 1,025, bit-identical to the plain version.  For
+              the record: queries/s through the door, and of 5 direct topk
+              calls on fresh batches with obs.configure(True) and 5 with
+              (False), in turns.
+ 6. lm      - llama3-8B at full width and depth (32 layers, d_model 4096,
               32 heads / 8 KV heads, vocab 128,256, bf16), weights drawn on
               the card from --seed (16 GB).  ServeEngine.generate answers 4
               requests of 1,024 random prompt tokens, caches of 2,048
@@ -62,7 +84,7 @@ Phases, each fatal on failure (exit code other than 0, no result line):
               faulty layers, the end-to-end rule must reject the fault in
               every layer, and its readings under each fault are printed
               beside the sound ones.
- 6. kernels - each kernel against its plain version on the card, at the
+ 7. kernels - each kernel against its plain version on the card, at the
               shapes the main path gave it: B1-B5 bit for bit (B2 also at
               the kept band-walk chunks; B5 also against the sparse plain
               version of the same rows), B6 on the prefill's first
@@ -101,7 +123,8 @@ Phases, each fatal on failure (exit code other than 0, no result line):
               sheet).  For B6 also the time of PyTorch's
               scaled_dot_product_attention on the same inputs
               (library_ms, a yardstick the port never calls).
- 7. output  - the nvidia-smi line, one JSON line listing the kernels, and
+ 8. output  - the nvidia-smi line, one JSON line listing the kernels (with
+              the main path's launches and the frontdoor phase's), and
               last the line {"ok": true, "device": {...}}.
 """
 
@@ -111,6 +134,8 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -119,6 +144,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch import obs  # noqa: E402
 from repro_torch.configs.base import ParallelConfig  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import hashing, packing  # noqa: E402
@@ -133,7 +159,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.hamming import ops as hamming_ops  # noqa: E402
 from repro_torch.kernels.topk_select import ops as topk_ops  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
-from repro_torch.serve import ServeEngine  # noqa: E402
+from repro_torch.serve import Deadline, FrontDoor, ServeEngine  # noqa: E402
 
 # PubMed, the paper's Table 1 (repro/data/synthetic.py TABLE1["pubmed"])
 N_DIMS, N_CATEGORIES, DENSITY = 141043, 47, 199
@@ -155,6 +181,14 @@ BIG_D, BIG_D_ROWS = 2_000_001, 256
 TIMED_RUNS = 5
 INDEX_KERNELS = ("cabin_build", "cabin_build_sparse", "pair_stats",
                  "row_popcount", "topk_select")
+# the frontdoor phase: client threads, query rows a request, the answers
+# also held against brute force, queries a deadline check, rows of the
+# width-0 check's engine, the top-k alignment check's shape, and direct
+# topk calls timed with the recorder on and with it off, in turns
+FD_CLIENTS, FD_REQ_ROWS, FD_SAMPLE = 4, 8, 16
+FD_DEADLINE_QUERIES, FD_C1_ROWS = 8, 4096
+FD_C2_QUERIES, FD_C2_ROWS = 16, 65536
+FD_TIMED_CALLS = 5
 
 # the LM phase: llama3-8B at full width and depth, 4 requests of 1,024
 # prompt tokens, caches of 2,048 positions, 32 greedy new tokens
@@ -436,7 +470,7 @@ def main_path(metric: str, idx: torch.Tensor, val: torch.Tensor,
         f"{radius_s:.3f}s ({n_hits} hits), pairwise "
         f"{N_RADIUS_QUERIES}x{N_PAIRWISE_IDS} {pairwise_s:.3f}s [{card}]")
     return {"q_sk": q_sk, "alive": alive, "band_chunk": band_chunk,
-            "engine": engine, "alive_ids": alive_ids}
+            "engine": engine, "alive_ids": alive_ids, "r": r}
 
 
 def time_topk(metric: str, run: dict, batches: list, card: str
@@ -447,7 +481,7 @@ def time_topk(metric: str, run: dict, batches: list, card: str
     path's launch counts were read: queries/s of each call, host clock
     (the answers come back to the host); each answer is held against the
     brute-force scan."""
-    engine = run.pop("engine")
+    engine = run["engine"]
     rates = []
     for q_idx, q_val in batches:
         torch.cuda.synchronize()
@@ -467,6 +501,262 @@ def time_topk(metric: str, run: dict, batches: list, card: str
         f"{float(np.median(rates))} queries/s), each equal to brute force "
         f"[{card}]")
     return rates
+
+
+# ---------------------------------------------------------------------------
+# the front door
+# ---------------------------------------------------------------------------
+
+
+def brute_topk(q_sk: torch.Tensor, rows: torch.Tensor, row_ids: np.ndarray,
+               metric: str, k: int = K) -> tuple[np.ndarray, np.ndarray]:
+    """The k nearest of `rows` by the plain top-k version: (ids, dists)."""
+    bv, bpos = topk_ops.topk_select_ref(q_sk, rows, k, d=SKETCH_DIM,
+                                        metric=metric)
+    return row_ids[bpos.cpu().numpy()], bv.cpu().numpy()
+
+
+def prom_counts(text: str, name: str) -> dict:
+    """{op: count} of the histogram `name` in Prometheus text."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith(name + "_count{"):
+            label, value = line.rsplit(" ", 1)
+            out[label.split('op="')[1].split('"')[0]] = int(value)
+    return out
+
+
+def off_16_bytes(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of t whose data starts 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    start = next(s for s in range(4) if (buf.data_ptr() + 4 * s) % 16 == 4)
+    view = buf[start:start + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def frontdoor_phase(run: dict, gen: torch.Generator, calls: dict,
+                    card: str) -> dict:
+    """The cham engine of the main path served through one FrontDoor by
+    FD_CLIENTS client threads, then its deadlines, flight recorder, the
+    width-0 COO batch (C1) and top-k inputs off 16 bytes (C2) on the card.
+    `calls` is the engine calls made before (op -> count).  Returns the
+    launch counts of the served run and the phase's rates."""
+    metric, engine = "cham", run["engine"]
+    device = run["alive"].device
+    params = engine.params
+    sk_kw = dict(d=SKETCH_DIM, psi_seed=params.psi_seed,
+                 pi_seed=params.pi_seed)
+    q_idx, q_val = pubmed_rows(N_TOPK_QUERIES, gen, device)
+    rq_idx, rq_val = pubmed_rows(N_RADIUS_QUERIES, gen, device)
+    r = run["r"]
+    check(prom_counts(engine.render_prom(), "engine_query_latency_ms")
+          == calls, f"engine_query_latency_ms counts differ from the calls "
+          f"made {calls}")
+    calls = dict(calls)
+
+    # -- served: FD_CLIENTS threads, each its share of both batches ------
+    per_topk = N_TOPK_QUERIES // FD_CLIENTS
+    per_radius = N_RADIUS_QUERIES // FD_CLIENTS
+    answers: dict = {}
+    errors: list = []
+    obs.clear_trace()
+
+    def client(c: int, fd: FrontDoor) -> None:
+        try:
+            handles = []
+            for lo in range(c * per_topk, (c + 1) * per_topk, FD_REQ_ROWS):
+                sl = slice(lo, lo + FD_REQ_ROWS)
+                handles.append((("topk", lo), fd.submit(
+                    "topk", (q_idx[sl], q_val[sl]), k=K)))
+            for lo in range(c * per_radius, (c + 1) * per_radius,
+                            FD_REQ_ROWS):
+                sl = slice(lo, lo + FD_REQ_ROWS)
+                handles.append((("radius", lo), fd.submit(
+                    "radius", (rq_idx[sl], rq_val[sl]), r=r)))
+            for key, h in handles:
+                answers[key] = h.result(timeout=600)
+        except BaseException as e:  # surfaced on the main thread
+            errors.append(e)
+
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with FrontDoor(engine) as fd:
+        threads = [threading.Thread(target=client, args=(c, fd))
+                   for c in range(FD_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        served = fd.stats()
+    served_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    check(not errors, f"a front-door client failed: {errors[:1]}")
+    for kernel in ("cabin_build_sparse", "topk_select", "pair_stats",
+                   "row_popcount"):
+        check(launches[kernel] > 0, f"kernel {kernel} was not launched "
+              "through the front door")
+    n_req = (N_TOPK_QUERIES + N_RADIUS_QUERIES) // FD_REQ_ROWS
+    check(served["answered"] == n_req == len(answers)
+          and served["double_answers"] == 0,
+          f"front door answered {served['answered']} of {n_req}")
+    snap = engine.obs_snapshot()
+    flushes = {op: snap["frontdoor_service_ms"][f"op={op}"]["count"]
+               for op in ("topk", "radius")}
+    calls["topk"] += flushes["topk"]
+    calls["radius"] += flushes["radius"]
+
+    # every answer against the engine's own on the same queries
+    ids, dist = engine.topk((q_idx, q_val), K)
+    near = engine.radius((rq_idx, rq_val), r)
+    calls["topk"] += 1
+    calls["radius"] += 1
+    for (op, lo), res in answers.items():
+        check(res.ok and not res.partial and res.cert_gap == 0.0,
+              f"front-door {op} at {lo}: {res}")
+        if op == "topk":
+            check(np.array_equal(res.ids, ids[lo:lo + FD_REQ_ROWS])
+                  and np.array_equal(res.dists, dist[lo:lo + FD_REQ_ROWS]),
+                  f"front-door topk at {lo} differs from engine.topk")
+        else:
+            for got, want in zip(res.hits, near[lo:lo + FD_REQ_ROWS]):
+                check(np.array_equal(got, want),
+                      f"front-door radius at {lo} differs from "
+                      "engine.radius")
+    sample = sparse_ops.cabin_build_sparse_ref(q_idx[:FD_SAMPLE],
+                                               q_val[:FD_SAMPLE], **sk_kw)
+    bi, bd = brute_topk(sample, run["alive"], run["alive_ids"], metric)
+    check(np.array_equal(bi, ids[:FD_SAMPLE])
+          and np.array_equal(bd, dist[:FD_SAMPLE]),
+          "front-door sample differs from the brute-force scan")
+
+    # -- deadlines ---------------------------------------------------------
+    e_idx, e_val = pubmed_rows(FD_DEADLINE_QUERIES, gen, device)
+    e_ids, e_d, info = engine.topk_budgeted((e_idx, e_val), K,
+                                            deadline=Deadline(timeout_ms=0))
+    calls["topk"] += 1
+    filled = e_ids >= 0
+    check(info["partial"] and info["cert_gap"] > 0,
+          f"an expired deadline gave {info}")
+    check(np.array_equal(~filled, np.isinf(e_d)),
+          "unfilled slots are not (-1, inf)")
+    e_sk = sparse_ops.cabin_build_sparse_ref(e_idx, e_val, **sk_kw)
+    true = plain_dist(e_sk, run["alive"], metric).cpu().numpy()
+    pos = np.searchsorted(run["alive_ids"], e_ids[filled])
+    check(np.array_equal(true[np.nonzero(filled)[0], pos], e_d[filled]),
+          "a partial answer's id does not carry its true distance")
+    with FrontDoor(engine) as fd:
+        late = fd.submit("topk", (e_idx, e_val), k=K,
+                         timeout_ms=0).result(timeout=60)
+        f_idx, f_val = pubmed_rows(FD_DEADLINE_QUERIES, gen, device)
+        far = fd.topk((f_idx, f_val), K, deadline=Deadline(timeout_ms=1e9))
+    calls["topk"] += 1
+    check(late.partial and late.timed_out and late.ids.shape
+          == (FD_DEADLINE_QUERIES, 0), f"zero timeout gave {late}")
+    f_sk = sparse_ops.cabin_build_sparse_ref(f_idx, f_val, **sk_kw)
+    bi, bd = brute_topk(f_sk, run["alive"], run["alive_ids"], metric)
+    check(not far.partial and np.array_equal(far.ids, bi)
+          and np.array_equal(far.dists, bd),
+          "a deadline that never fires differs from brute force")
+    g_idx, g_val = pubmed_rows(FD_DEADLINE_QUERIES, gen, device)
+    g_ids, g_d, g_info = engine.topk_budgeted(
+        (g_idx, g_val), K, deadline=Deadline(timeout_ms=1e9))
+    calls["topk"] += 1
+    g_sk = sparse_ops.cabin_build_sparse_ref(g_idx, g_val, **sk_kw)
+    bi, bd = brute_topk(g_sk, run["alive"], run["alive_ids"], metric)
+    check(not g_info["partial"] and g_info["cert_gap"] == 0.0
+          and np.array_equal(g_ids, bi) and np.array_equal(g_d, bd),
+          f"topk_budgeted under a deadline that never fires {g_info} "
+          "differs from brute force")
+
+    # -- flight recorder ---------------------------------------------------
+    counts = prom_counts(engine.render_prom(), "engine_query_latency_ms")
+    check(counts == calls, f"render_prom counts {counts} != calls made "
+          f"{calls}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        n_events = obs.export_trace(str(path))
+        with open(path) as f:
+            names = {e["name"] for e in json.load(f)["traceEvents"]}
+    check({"engine.topk", "engine.radius", "frontdoor.flush",
+           "partition.merge"} <= names, f"trace spans {sorted(names)}")
+
+    # -- C1: a COO batch of width 0 on the card ----------------------------
+    widths = []
+    real = sparse_ops.cabin_build_sparse
+
+    def spy(indices, values, **kw):
+        widths.append(indices.shape[1])
+        return real(indices, values, **kw)
+
+    small = QueryEngine(params, metric=metric, device=device)
+    s_idx, s_val = pubmed_rows(FD_C1_ROWS, gen, device)
+    zero = torch.zeros((2, 0), dtype=torch.int32, device=device)
+    sparse_ops.cabin_build_sparse = spy
+    try:
+        small.add_sparse(s_idx, s_val)
+        zero_ids = small.add_sparse(zero, zero)
+        z_ids, z_d = small.topk((zero[:1], zero[:1]), K)
+    finally:
+        sparse_ops.cabin_build_sparse = real
+    mat, m_alive, alive_ids = small.store.gather_alive()
+    bi, bd = brute_topk(torch.zeros((1, mat.shape[1]), dtype=torch.int32,
+                                    device=device),
+                        mat[:m_alive].contiguous(), alive_ids, metric)
+    check(list(zero_ids) == [FD_C1_ROWS, FD_C1_ROWS + 1] and 0 not in widths
+          and np.array_equal(z_ids, bi) and np.array_equal(z_d, bd)
+          and list(z_ids[0, :2]) == list(zero_ids),
+          f"width-0 COO on the card: ids {zero_ids}, widths {widths}, "
+          f"topk {z_ids} vs brute force {bi}")
+
+    # -- C2: top-k inputs off 16 bytes -------------------------------------
+    c2_q = run["q_sk"][:FD_C2_QUERIES].contiguous()
+    c2_b = run["alive"][:FD_C2_ROWS].contiguous()
+    for k in (K, topk_ops.MAX_K + 1):
+        wv, wi = topk_ops.topk_select_ref(c2_q, c2_b, k, d=SKETCH_DIM,
+                                          metric=metric)
+        for q, b, what in ((off_16_bytes(c2_q), c2_b, "q"),
+                           (c2_q, off_16_bytes(c2_b), "b"),
+                           (off_16_bytes(c2_q), off_16_bytes(c2_b), "both")):
+            gv, gi = topk_ops.topk_select(q, b, k, d=SKETCH_DIM,
+                                          metric=metric)
+            torch.cuda.synchronize()
+            check(torch.equal(gi, wi) and torch.equal(gv, wv),
+                  f"top-k with {what} off 16 bytes at k={k} differs from "
+                  "the plain version")
+
+    # -- timings, for the record: on and off in turns -----------------------
+    direct = {"obs_on": [], "obs_off": []}
+    was = obs.enabled()
+    for _ in range(FD_TIMED_CALLS):
+        for on in (True, False):
+            obs.configure(on)
+            b_idx, b_val = pubmed_rows(N_TOPK_QUERIES, gen, device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.topk((b_idx, b_val), K)
+            direct["obs_on" if on else "obs_off"].append(
+                N_TOPK_QUERIES / (time.perf_counter() - t0))
+    obs.configure(was)
+    served_qps = (N_TOPK_QUERIES + N_RADIUS_QUERIES) / served_s
+    log(f"[frontdoor] {FD_CLIENTS} clients, {n_req} requests of "
+        f"{FD_REQ_ROWS} queries ({N_TOPK_QUERIES} topk k={K}, "
+        f"{N_RADIUS_QUERIES} radius r={r:.4f}) in {served_s:.3f}s "
+        f"({served_qps:.1f} queries/s), {flushes} engine calls; every "
+        f"answer equal to the engine's own, {FD_SAMPLE} to brute force; "
+        f"kernel launches {launches}; expired deadline: partial, cert_gap "
+        f"{info['cert_gap']:.4f}, {int(filled.sum())} of {filled.size} "
+        f"slots filled, each at its true distance; a deadline that never "
+        f"fires exact; render_prom latency counts {counts} = calls made; "
+        f"trace of {n_events} events; C1 width 0 through add_sparse and "
+        f"topk (B1 widths {sorted(set(widths))}); C2 off-16-byte q / b / "
+        f"both at k = {K} and {topk_ops.MAX_K + 1} bit-identical; direct "
+        f"topk queries/s with obs on {direct['obs_on']}, off "
+        f"{direct['obs_off']} [{card}]")
+    return {"launches": launches, "served_qps": served_qps,
+            "direct": direct}
 
 
 # ---------------------------------------------------------------------------
@@ -1173,6 +1463,11 @@ def smoke(seed: int, device=torch.device("cuda")) -> None:
                for _ in range(TIMED_RUNS)]
     for m in ("cham", "hamming"):
         runs[m]["topk_rates"] = time_topk(m, runs[m], batches, card)
+    served = frontdoor_phase(
+        runs["cham"], gen, {"topk": 1 + TIMED_RUNS, "radius": 1,
+                            "pairwise": 1}, card)
+    for m in ("cham", "hamming"):
+        del runs[m]["engine"]
     runs["dense_coo"] = (d_idx, d_val)
 
     qkv, lm_launches = lm_phase(seed, card)
@@ -1183,6 +1478,8 @@ def smoke(seed: int, device=torch.device("cuda")) -> None:
     kernels = kernel_phases(CabinParams.create(N_DIMS, SKETCH_DIM, seed=0),
                             idx, val, dense, runs, qkv, launches, rates,
                             sass, usage)
+    for entry in kernels:
+        entry["frontdoor_launches"] = served["launches"][entry["name"]]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -16,3 +17,10 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+def on_device(x, device: torch.device) -> torch.Tensor:
+    """A numpy array, nested sequence or tensor as a tensor on `device`,
+    dtype kept."""
+    return torch.as_tensor(x if torch.is_tensor(x) else np.asarray(x),
+                           device=device)

@@ -19,6 +19,7 @@ from repro_torch.core.allpairs import (KBEST_KEY_PAD, PRUNE_MARGIN,
                                        prune_factor, prune_score_host)
 from repro_torch.core.packing import padded_take
 from repro_torch.index.store import SketchStore
+from repro_torch.obs.registry import NULL_REGISTRY
 
 
 class BandedLayout:
@@ -30,10 +31,21 @@ class BandedLayout:
     sorted positions to external ids and `slots` to store slots.  Later
     tombstones thread through `refresh_alive` without a rebuild; band
     score intervals stay conservative supersets for any alive subset.
+    `registry` receives the banding counters: queries, bands visited and
+    pruned, and early stops at the certificate.
     """
 
     def __init__(self, store: SketchStore, metric: str,
-                 band_rows: int = 1024, slots: np.ndarray | None = None):
+                 band_rows: int = 1024, registry=None,
+                 slots: np.ndarray | None = None):
+        # under NULL_REGISTRY the counters are shared no-ops and the walk's
+        # stats dict is not even built
+        reg = NULL_REGISTRY if registry is None else registry
+        self._obs_off = reg.is_null
+        self._c_queries = reg.counter("index_banded_queries_total")
+        self._c_visited = reg.counter("index_bands_visited_total")
+        self._c_pruned = reg.counter("index_bands_pruned_total")
+        self._c_early = reg.counter("index_band_early_stops_total")
         self.metric = metric
         self.d = store.d
         self.band_rows = int(band_rows)
@@ -84,23 +96,46 @@ class BandedLayout:
         return (factor * gap < radius + PRUNE_MARGIN).any(axis=0)
 
     def topk(self, queries: torch.Tensor, query_weights: np.ndarray,
-             k: int, *, q_valid: int, init_kth: np.ndarray | None = None
+             k: int, *, q_valid: int, deadline=None,
+             info_out: dict | None = None,
+             init_kth: np.ndarray | None = None
              ) -> tuple[np.ndarray, np.ndarray]:
         """Progressive band-expansion k-NN: (ids (Q, k'), dists (Q, k')),
         k' = min(k, n_alive), ascending by (distance, id), equal to
         `topk_rows` over the alive membership in id order.  `init_kth`
         seeds the certificate with a cross-partition k-th bound; columns
-        it leaves unfilled carry KBEST_KEY_PAD ids and merge away."""
+        it leaves unfilled carry KBEST_KEY_PAD ids and merge away.
+        `deadline` bounds the walk: when it fires, `info_out` (if given)
+        reports partial=True and the residual cert_gap; exact calls leave
+        partial=False, cert_gap=0.0."""
+        if info_out is not None:
+            info_out.update(partial=False, cert_gap=0.0)
         if self._n_alive == 0 or k <= 0 or q_valid == 0:
             return (np.zeros((q_valid, 0), np.int64),
                     np.zeros((q_valid, 0), np.float32))
         qs = prune_score_host(np.asarray(query_weights)[:q_valid], self.d,
                               self.metric)
+        st = None if (self._obs_off and info_out is None
+                      and deadline is None) else {}
         pos, vals = allpairs.topk_rows_banded(
             queries, self.matrix, k, d=self.d, metric=self.metric,
             q_scores=qs, band_lo=self.band_lo, band_hi=self.band_hi,
             band_rows=self.band_rows, n_valid=self.n, order_by=self.ids,
-            q_valid=q_valid, alive=self._mask(), init_kth=init_kth)
+            q_valid=q_valid, alive=self._mask(), stats_out=st,
+            deadline=deadline, init_kth=init_kth)
+        if st is not None and not self._obs_off:
+            self._c_queries.inc()
+            self._c_visited.inc(st["bands_visited"])
+            self._c_pruned.inc(st["n_bands"] - st["bands_visited"])
+            if st["early_stop"]:
+                self._c_early.inc()
+        if info_out is not None and st is not None:
+            info_out.update(partial=st["partial"],
+                            cert_gap=st["cert_gap"],
+                            bands_visited=st["bands_visited"],
+                            rows_visited=st["rows_visited"])
+        # a budget-stopped walk, or a cross-partition bound, can leave
+        # columns unfilled (pos == -1): they carry the KBEST pad id
         if (pos < 0).any():
             ids = np.full(pos.shape, KBEST_KEY_PAD, np.int64)
             real = pos >= 0

@@ -18,6 +18,12 @@ the fused top-k select serves `topk`, and pair stats serve `radius` and
     whatever the mutation history.  Ties in topk go to the lower id.
   * LRU result cache keyed on (op, args, store version, query-sketch
     bytes): any mutation bumps the version, so stale hits cannot happen.
+  * Flight recorder: one `repro_torch.obs` registry per engine (latency
+    histograms per op, cache counters, structural gauges, the store's and
+    the band walk's counters) and an ``engine.<op>`` span per query,
+    exported by `render_prom`, `obs_snapshot` and `stats()["latency_ms"]`.
+  * Budgeted serving: `topk_budgeted` stops the band walk when a deadline
+    fires and reports the answer as partial, with its certificate gap.
 
 The engine runs on `device="cuda"` unless the caller asks for the CPU,
 where every kernel is replaced by its plain version.
@@ -30,11 +36,14 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import packing
+from repro_torch.core.allpairs import KBEST_KEY_PAD
 from repro_torch.core.cabin import CabinParams, sketch_dense, sketch_sparse
+from repro_torch.core.packing import pow2_bucket
 from repro_torch.index import partition
 from repro_torch.index.partition import PartitionSet
-from repro_torch.device import resolve_device
+from repro_torch.device import on_device, resolve_device
 from repro_torch.index.store import SketchSpec, SketchStore
 
 _METRICS = ("cham", "hamming")
@@ -50,14 +59,8 @@ def _later(name: str, slice_name: str):
     return method
 
 
-def _on_device(x, device: torch.device) -> torch.Tensor:
-    """A numpy array or tensor as a tensor on `device`, dtype kept."""
-    return torch.as_tensor(x if torch.is_tensor(x) else np.asarray(x)
-                           ).to(device)
-
-
 def _packed_on_device(sk, device: torch.device) -> torch.Tensor:
-    sk = _on_device(sk, device)
+    sk = on_device(sk, device)
     if sk.dtype != torch.int32 or sk.ndim != 2:
         raise TypeError(f"expected (k, w) int32 packed rows, got "
                         f"{tuple(sk.shape)} {sk.dtype}")
@@ -79,12 +82,15 @@ class QueryEngine:
         rows exceed `merge_ratio * base_alive`; 0 rebuilds on every
         mutation, None only on `compact()`.
     device : "cuda" (default; RuntimeError when CUDA is absent) or "cpu".
+    registry : the engine's metrics registry (default: a fresh one from
+        `obs.new_registry()`, the shared no-op registry under REPRO_OBS=0).
     """
 
     def __init__(self, params: CabinParams, *, metric: str = "cham",
                  block: int = 2048, band_rows: int = 1024,
                  cache_entries: int = 256,
-                 merge_ratio: float | None = 0.125, device="cuda"):
+                 merge_ratio: float | None = 0.125, device="cuda",
+                 registry=None):
         if metric not in _METRICS:
             raise ValueError(f"metric must be one of {_METRICS}")
         self.device = resolve_device(device)
@@ -101,6 +107,38 @@ class QueryEngine:
         self._cache_entries = cache_entries
         self.cache_hits = 0
         self.cache_misses = 0
+        # instruments are cached here once: queries never pay a registry
+        # lookup, and under NULL_REGISTRY every call is a shared no-op
+        self.obs = obs.new_registry() if registry is None else registry
+        self.store.set_registry(self.obs)
+        self._h_lat = {
+            op: self.obs.histogram("engine_query_latency_ms", op=op)
+            for op in ("topk", "radius", "pairwise")}
+        self._c_hits = self.obs.counter("engine_cache_hits_total")
+        self._c_misses = self.obs.counter("engine_cache_misses_total")
+        self._register_obs_gauges()
+
+    def _register_obs_gauges(self) -> None:
+        """Structural state as read-time callbacks.  The reference's
+        gauges of the compile cache, the density drift and a migration
+        have no state in the port yet and are not registered."""
+        reg = self.obs
+        reg.gauge_fn("engine_rows_alive", lambda: float(len(self)))
+        reg.gauge_fn("engine_store_size", lambda: float(self.store.size))
+        reg.gauge_fn("engine_store_capacity",
+                     lambda: float(self.store.capacity))
+        reg.gauge_fn("engine_lru_entries", lambda: float(len(self._cache)))
+        reg.gauge_fn("engine_tier_base_rows",
+                     lambda: float(self._tiered.base_alive
+                                   if self._tiered else 0))
+        reg.gauge_fn("engine_tier_delta_rows",
+                     lambda: float(self._tiered.delta_n
+                                   if self._tiered else 0))
+        reg.gauge_fn("engine_tier_merges",
+                     lambda: float(self._tiered.n_merges
+                                   if self._tiered else 0))
+        reg.gauge_fn("engine_shards", lambda: 1.0)
+        reg.gauge_fn("engine_sketch_dim", lambda: float(self.d))
 
     # -- basics -------------------------------------------------------------
 
@@ -116,7 +154,7 @@ class QueryEngine:
 
     def stats(self) -> dict:
         t = self._tiered
-        return {
+        out = {
             "n_alive": len(self),
             "size": self.store.size,
             "capacity": self.store.capacity,
@@ -131,20 +169,43 @@ class QueryEngine:
             "tier_merges": t.n_merges if t else None,
             "n_shards": 1,
         }
+        lat = {}
+        for op, h in self._h_lat.items():
+            if h.count:
+                lat[op] = {"count": h.count, "p50": h.quantile(50),
+                           "p95": h.quantile(95), "p99": h.quantile(99)}
+        if lat:
+            out["latency_ms"] = lat
+        return out
+
+    def render_prom(self) -> str:
+        """This engine's registry in Prometheus text exposition format."""
+        return self.obs.render_prom()
+
+    def obs_snapshot(self) -> dict:
+        """Plain-dict snapshot of this engine's registry: every counter,
+        gauge (evaluated live), and histogram with p50/p95/p99."""
+        return self.obs.snapshot()
 
     # -- sketching ----------------------------------------------------------
 
     def _sketch(self, queries) -> tuple[torch.Tensor, int]:
         """Raw categorical input -> (packed sketches (k, w) on the engine's
         device, k).  `queries` is a dense (k, n_dims) int array or an
-        (indices, values) padded-COO pair, numpy or torch."""
+        (indices, values) padded-COO pair, numpy or torch.  A COO batch of
+        width 0 is padded to the reference engine's smallest width bucket
+        (pow2_bucket(0) = 8 slots of padding): its rows sketch to zero."""
         params = self.params
         if isinstance(queries, (tuple, list)):
-            indices = _on_device(queries[0], self.device)
-            values = _on_device(queries[1], self.device)
+            indices = on_device(queries[0], self.device)
+            values = on_device(queries[1], self.device)
             if indices.shape != values.shape or indices.ndim != 2:
                 raise ValueError("COO input needs matching (k, m) "
                                  "indices/values")
+            if indices.shape[1] == 0:
+                pad = (indices.shape[0], pow2_bucket(0))
+                indices = indices.new_zeros(pad)
+                values = values.new_zeros(pad)
             # range check before the int32 cast, which could wrap
             if indices.numel() and bool(
                     (indices.max() >= params.n_dims) | (indices.min() < 0)):
@@ -152,7 +213,7 @@ class QueryEngine:
                     f"COO indices out of range [0, {params.n_dims})")
             return (sketch_sparse(params, indices.to(torch.int32),
                                   values.to(torch.int32)), indices.shape[0])
-        x = _on_device(queries, self.device).to(torch.int32)
+        x = on_device(queries, self.device).to(torch.int32)
         if x.ndim != 2 or x.shape[1] != params.n_dims:
             raise ValueError(
                 f"expected dense (k, {params.n_dims}) rows, "
@@ -194,12 +255,14 @@ class QueryEngine:
         if key is not None and key in self._cache:
             self._cache.move_to_end(key)
             self.cache_hits += 1
+            self._c_hits.inc()
             return self._cache[key]
         return None
 
     def _remember(self, key, value) -> None:
         """Store a private copy of `value` (key=None: caching disabled)."""
         self.cache_misses += 1
+        self._c_misses.inc()
         if key is None:
             return
         if isinstance(value, tuple):
@@ -217,20 +280,48 @@ class QueryEngine:
         dense rows or an (indices, values) COO pair."""
         if k < 0:
             raise ValueError(f"topk: k must be >= 0, got {k}")
-        sk, q = self._sketch(queries)
-        return self._topk_packed_impl(sk, k, q)
+        with self._h_lat["topk"].time(), obs.span("engine.topk", k=k):
+            sk, q = self._sketch(queries)
+            return self._topk_packed_impl(sk, k, q)
+
+    def topk_budgeted(self, queries, k: int, deadline=None
+                      ) -> tuple[np.ndarray, np.ndarray, dict]:
+        """`topk` under a latency budget: (ids, dists, info), info holding
+        {"partial", "cert_gap"}.  `deadline` is any object with an
+        `expired` property (`repro_torch.serve.Deadline`); when it fires
+        before the band walk's exactness certificate closes, the walk
+        stops, the best candidates seen so far come back with
+        info["partial"]=True, and info["cert_gap"] is how far the k-th
+        bound would have to move for the answer to be provably exact.
+        With deadline=None (or when the walk finishes in budget) the
+        result is bit-identical to `topk` and partial is False.  Unfilled
+        slots of a partial answer carry id -1 and distance inf."""
+        if k < 0:
+            raise ValueError(f"topk: k must be >= 0, got {k}")
+        info: dict = {}
+        with self._h_lat["topk"].time(), obs.span("engine.topk", k=k):
+            sk, q = self._sketch(queries)
+            ids, dists = self._topk_packed_impl(sk, k, q, deadline=deadline,
+                                                info_out=info)
+            if info["partial"]:
+                ids = np.where(ids == KBEST_KEY_PAD, -1, ids)
+            return ids, dists, info
 
     def topk_packed(self, sk, k: int, n_valid: int | None = None
                     ) -> tuple[np.ndarray, np.ndarray]:
         """`topk` on pre-sketched packed queries (k, w) int32."""
         if k < 0:
             raise ValueError(f"topk: k must be >= 0, got {k}")
-        return self._topk_packed_impl(_packed_on_device(sk, self.device), k,
-                                      n_valid)
+        with self._h_lat["topk"].time(), obs.span("engine.topk", k=k):
+            return self._topk_packed_impl(
+                _packed_on_device(sk, self.device), k, n_valid)
 
     def _topk_packed_impl(self, sk: torch.Tensor, k: int,
-                          n_valid: int | None
+                          n_valid: int | None, deadline=None,
+                          info_out: dict | None = None
                           ) -> tuple[np.ndarray, np.ndarray]:
+        if info_out is not None:
+            info_out.update(partial=False, cert_gap=0.0)
         q = sk.shape[0] if n_valid is None else n_valid
         if not 0 <= q <= sk.shape[0]:
             raise ValueError(
@@ -244,23 +335,30 @@ class QueryEngine:
             key = ("topk", kk, self.store.version, q_host.tobytes())
             hit = self._cached(key)
             if hit is not None:
+                # partial answers never enter the LRU, so a budgeted call
+                # served from it gets the exact answer
                 return hit[0].copy(), hit[1].copy()
         out = self.sync_layout().topk(
-            sk[:q], packing.np_popcount_rows(q_host), kk, q_valid=q)
+            sk[:q], packing.np_popcount_rows(q_host), kk, q_valid=q,
+            deadline=deadline, info_out=info_out)
+        if info_out is not None and info_out.get("partial"):
+            key = None  # a partial answer must not shadow the exact one
         self._remember(key, out)
         return out
 
     def radius(self, queries, r: float) -> list[np.ndarray]:
         """All stored rows within distance < r of each query: a list of Q
         ascending id arrays.  r <= 0 returns empty arrays."""
-        sk, q = self._sketch(queries)
-        return self._radius_packed_impl(sk, r, q)
+        with self._h_lat["radius"].time(), obs.span("engine.radius", r=r):
+            sk, q = self._sketch(queries)
+            return self._radius_packed_impl(sk, r, q)
 
     def radius_packed(self, sk, r: float, n_valid: int | None = None
                       ) -> list[np.ndarray]:
         """`radius` on pre-sketched packed queries."""
-        return self._radius_packed_impl(_packed_on_device(sk, self.device),
-                                        r, n_valid)
+        with self._h_lat["radius"].time(), obs.span("engine.radius", r=r):
+            return self._radius_packed_impl(
+                _packed_on_device(sk, self.device), r, n_valid)
 
     def _radius_packed_impl(self, sk: torch.Tensor, r: float,
                             n_valid: int | None) -> list[np.ndarray]:
@@ -296,6 +394,10 @@ class QueryEngine:
         dists (Q, N') f32).  Entries equal the topk/radius distances of
         the same pairs bit for bit: all read the same integer statistics
         through the same Cham table."""
+        with self._h_lat["pairwise"].time(), obs.span("engine.pairwise"):
+            return self._pairwise_impl(queries, ids)
+
+    def _pairwise_impl(self, queries, ids) -> tuple[np.ndarray, np.ndarray]:
         from repro_torch.kernels.hamming import ops as hamming_ops
 
         sk, q = self._sketch(queries)
@@ -330,12 +432,12 @@ class QueryEngine:
         if self._tiered is None:
             self._tiered = PartitionSet(self.store, self.metric,
                                         band_rows=self.band_rows,
-                                        merge_ratio=self.merge_ratio)
+                                        merge_ratio=self.merge_ratio,
+                                        registry=self.obs)
         return self._tiered.sync(self.store)
 
     # -- later slices of the port -------------------------------------------
 
-    topk_budgeted = _later("topk_budgeted", "FrontDoor")
     merge = _later("merge", "merge")
     migrate = _later("migrate", "migration")
     migration_step = _later("migration_step", "migration")
@@ -344,5 +446,3 @@ class QueryEngine:
     restore = staticmethod(_later("restore", "checkpoint"))
     cluster = _later("cluster", "clustering")
     shard = _later("shard", "multi-shard")
-    render_prom = _later("render_prom", "obs")
-    obs_snapshot = _later("obs_snapshot", "obs")

@@ -19,6 +19,11 @@ Partitions are disjoint and cover the alive membership, each returns an
 exact (or, under the running k-th bound, a provably sufficient) k-best,
 and the merge is the lexicographic rule `topk_rows_banded` uses across
 chunks, so answers equal one scan over the membership.
+
+A deadline budgets the base partition's banded walk; a walk it stops
+makes the answer partial, with the walk's residual certificate gap.  The
+merge is traced as the ``partition.merge`` span, and each partition's
+alive rows are a ``partition_rows`` gauge.
 """
 
 from __future__ import annotations
@@ -26,11 +31,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import allpairs
 from repro_torch.core.allpairs import KBEST_KEY_PAD, kbest_lex_merge
 from repro_torch.core.packing import padded_take
 from repro_torch.index.bands import BandedLayout
 from repro_torch.index.store import SketchStore
+from repro_torch.obs.registry import NULL_REGISTRY
 
 PARTITION_KINDS = ("sorted-banded", "brute-delta")
 
@@ -78,7 +85,7 @@ class Partition:
 
     def __init__(self, kind: str, store: SketchStore, *,
                  metric: str | None = None, band_rows: int = 1024,
-                 slots: np.ndarray | None = None):
+                 registry=None, slots: np.ndarray | None = None):
         if kind not in PARTITION_KINDS:
             raise ValueError(
                 f"partition kind must be one of {PARTITION_KINDS}, "
@@ -87,7 +94,7 @@ class Partition:
         self._store = store
         if kind == "sorted-banded":
             self.banded = BandedLayout(store, metric, band_rows=band_rows,
-                                       slots=slots)
+                                       registry=registry, slots=slots)
             self.slots = self.banded.slots
             self.ids = self.banded.ids
         else:
@@ -142,21 +149,26 @@ class PartitionSet:
     The delta folds into a new base when its live rows exceed
     `merge_ratio * base_alive`, or when tombstones outnumber the base's
     alive rows (`merge_ratio=0` rebuilds on every mutation, None folds
-    only on compaction)."""
+    only on compaction).  `registry` receives the banding counters and the
+    `partition_rows` gauges."""
 
     def __init__(self, store: SketchStore, metric: str,
-                 band_rows: int = 1024, merge_ratio: float | None = 0.125):
+                 band_rows: int = 1024, merge_ratio: float | None = 0.125,
+                 registry=None):
         self.metric = metric
         self.d = store.d
         self.band_rows = int(band_rows)
         self.merge_ratio = merge_ratio
+        self.registry = NULL_REGISTRY if registry is None else registry
         self.n_merges = -1  # the initial build below is not a merge
         self._rebuild(store)
+        self._register_gauges(store.device)
 
     def _rebuild(self, store: SketchStore) -> None:
         """Fold the whole alive membership into a fresh sorted base."""
         self.base = Partition("sorted-banded", store, metric=self.metric,
                               band_rows=self.band_rows,
+                              registry=self.registry,
                               slots=store.alive_slots())
         self.delta = Partition("brute-delta", store)
         st = store.stamp()
@@ -223,15 +235,36 @@ class PartitionSet:
     def n_bands(self) -> int:
         return self.base.banded.n_bands
 
+    # -- obs ----------------------------------------------------------------
+
+    def _register_gauges(self, device: torch.device) -> None:
+        """`partition_rows` labelled by (shard, kind, role, device): read-
+        time callbacks onto the live partitions, so a fold is visible at
+        the next scrape.  One shard and the serving role: shards and
+        migration tiers come with later slices of the port."""
+        if self.registry.is_null:
+            return
+        for kind, rows in (("sorted-banded", lambda: self.base.n_rows),
+                           ("brute-delta", lambda: self.delta.n_rows)):
+            self.registry.gauge_fn(
+                "partition_rows", (lambda rows=rows: float(rows())),
+                shard="0", kind=kind, role="serve", device=str(device))
+
     # -- serving ------------------------------------------------------------
 
     def topk(self, queries: torch.Tensor, query_weights: np.ndarray, k: int,
-             *, q_valid: int, init_kth: np.ndarray | None = None
+             *, q_valid: int, deadline=None, info_out: dict | None = None,
+             init_kth: np.ndarray | None = None
              ) -> tuple[np.ndarray, np.ndarray]:
         """Cross-partition k-NN: (ids (Q, k'), dists (Q, k')), k' = min(k,
         n_alive), ascending by (distance, id).  The base walk runs first;
         its k-th bound (with `init_kth`, a bound from outside this set)
-        cannot help the brute-force delta scan, which is already exact."""
+        cannot help the brute-force delta scan, which is already exact.
+        `deadline` budgets the banded walk (the delta scan is O(delta) and
+        exact); `info_out` receives the walk's report (`partial`,
+        `cert_gap`, bands and rows visited)."""
+        if info_out is not None:
+            info_out.update(partial=False, cert_gap=0.0)
         kk = min(k, self.n_alive)
         if kk <= 0 or q_valid == 0:
             return (np.zeros((q_valid, 0), np.int64),
@@ -239,19 +272,23 @@ class PartitionSet:
         best: tuple[np.ndarray, np.ndarray] | None = None
         running = (None if init_kth is None
                    else np.asarray(init_kth, np.float32)[:q_valid])
-        if self.base.banded.n_alive:
-            best = self.base.banded.topk(queries, query_weights, kk,
-                                         q_valid=q_valid, init_kth=running)
-        if self.delta.n_rows:
-            # pad_k keeps k == kk while the delta holds fewer rows
-            pos, vals = allpairs.topk_rows(
-                queries[:q_valid], self.delta.matrix, kk, d=self.d,
-                metric=self.metric, m_valid=self.delta.n_rows, pad_k=True)
-            ids = np.full(pos.shape, KBEST_KEY_PAD, np.int64)
-            real = pos >= 0
-            ids[real] = self.delta.ids[pos[real]]
-            part = (ids, vals)
-            best = part if best is None else merge_topk_parts(kk, [best, part])
+        with obs.span("partition.merge", shards=1, k=kk, role="serve"):
+            if self.base.banded.n_alive:
+                best = self.base.banded.topk(
+                    queries, query_weights, kk, q_valid=q_valid,
+                    deadline=deadline, info_out=info_out, init_kth=running)
+            if self.delta.n_rows:
+                # pad_k keeps k == kk while the delta holds fewer rows
+                pos, vals = allpairs.topk_rows(
+                    queries[:q_valid], self.delta.matrix, kk, d=self.d,
+                    metric=self.metric, m_valid=self.delta.n_rows,
+                    pad_k=True)
+                ids = np.full(pos.shape, KBEST_KEY_PAD, np.int64)
+                real = pos >= 0
+                ids[real] = self.delta.ids[pos[real]]
+                part = (ids, vals)
+                best = (part if best is None
+                        else merge_topk_parts(kk, [best, part]))
         return best
 
     def radius_tiers(self, query_weights: np.ndarray, radius: float
@@ -261,8 +298,13 @@ class PartitionSet:
         out = []
         bl = self.base.banded
         if bl.n_alive:
-            sel, n_sel, sel_ids = bl.select(
-                bl.candidate_bands(query_weights, radius))
+            mask = bl.candidate_bands(query_weights, radius)
+            if not self.registry.is_null:
+                kept = int(np.count_nonzero(mask))
+                bl._c_queries.inc()
+                bl._c_visited.inc(kept)
+                bl._c_pruned.inc(bl.n_bands - kept)
+            sel, n_sel, sel_ids = bl.select(mask)
             if n_sel:
                 out.append((sel, n_sel, sel_ids))
         if self.delta.n_rows:
@@ -277,11 +319,13 @@ def topk_across_tiers(kk: int, tiers, *, q_valid: int
     threads across the sets as `init_kth`."""
     best: tuple[np.ndarray, np.ndarray] | None = None
     running: np.ndarray | None = None
-    for layout, queries, query_weights in tiers:
-        part = layout.topk(queries, query_weights, kk, q_valid=q_valid,
-                           init_kth=running)
-        best = part if best is None else merge_topk_parts(kk, [best, part])
-        running = _tighten(running, best[1], kk)
+    with obs.span("partition.merge", tiers=len(tiers), k=kk):
+        for layout, queries, query_weights in tiers:
+            part = layout.topk(queries, query_weights, kk, q_valid=q_valid,
+                               init_kth=running)
+            best = (part if best is None
+                    else merge_topk_parts(kk, [best, part]))
+            running = _tighten(running, best[1], kk)
     if best is None:
         return (np.zeros((q_valid, 0), np.int64),
                 np.zeros((q_valid, 0), np.float32))

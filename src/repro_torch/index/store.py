@@ -1,7 +1,7 @@
 """SketchStore: a growing, device-resident collection of packed sketches.
 
-The port of the JAX package's `repro.index.store` (merge, sharded
-placement and crash points are left to later slices):
+The port of the JAX package's `repro.index.store` (merge and sharded
+placement are left to later slices):
 
   * Power-of-two buffers.  Sketches live in a device tensor whose
     capacity is a power of two (`pow2_bucket`), grown by copying into a
@@ -14,6 +14,10 @@ placement and crash points are left to later slices):
 
 Host mirrors (ids, alive bitmap, weights) serve the planning work: band
 layout, capacity checks and id translation never touch the device.
+
+Mutations count into the engine's registry (`set_registry`); compaction
+is traced as the ``store.compact`` span and crosses the ``store.compact``
+crash point before it changes anything.
 """
 
 from __future__ import annotations
@@ -24,10 +28,15 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import packing
 from repro_torch.core.cabin import CabinParams
 from repro_torch.core.packing import pow2_bucket
 from repro_torch.device import resolve_device
+from repro_torch.obs.registry import NULL_REGISTRY
+from repro_torch.runtime import faultinject
+
+_CP_COMPACT = faultinject.declare("store.compact")
 
 
 @dataclass(frozen=True)
@@ -102,6 +111,19 @@ class SketchStore:
         self._epoch = 0  # bumped only when slot identity changes (compact)
         self._n_removed_total = 0  # monotone; lets layouts skip mask work
         self._gather_cache: AliveView | None = None
+        self.set_registry(None)
+
+    def set_registry(self, registry) -> None:
+        """Point the store's mutation counters at a MetricsRegistry (None
+        resets to the shared no-op registry).  The engine calls this with
+        its per-engine registry."""
+        reg = NULL_REGISTRY if registry is None else registry
+        self._c_added = reg.counter("store_rows_added_total")
+        self._c_removed = reg.counter("store_rows_removed_total")
+        self._c_compactions = reg.counter("store_compactions_total")
+        # the reference's fourth counter, which stays 0 until the store
+        # can merge (the merge slice of the port)
+        reg.counter("store_merges_total")
 
     # -- introspection ------------------------------------------------------
 
@@ -203,6 +225,7 @@ class SketchStore:
         self._size += k
         self._n_alive += k
         self._next_id = int(new_ids[-1]) + 1
+        self._c_added.inc(k)
         self._bump()
         return new_ids
 
@@ -243,12 +266,20 @@ class SketchStore:
         self._alive[slots] = False
         self._n_alive -= len(ids)
         self._n_removed_total += len(ids)
+        self._c_removed.inc(len(ids))
         self._bump()
         return len(ids)
 
     def compact(self) -> None:
         """Drop tombstoned slots, preserving insertion order, and shrink the
         buffers to the smallest power-of-two capacity that fits."""
+        with obs.span("store.compact", size=self._size,
+                      n_alive=self._n_alive):
+            self._compact()
+
+    def _compact(self) -> None:
+        faultinject.crash_point(_CP_COMPACT)
+        self._c_compactions.inc()
         slots = self.alive_slots()
         n = len(slots)
         cap = pow2_bucket(n)

@@ -122,6 +122,11 @@ def topk_select(q: torch.Tensor, b: torch.Tensor, k: int, *, d: int,
     if metric not in METRICS:
         raise ValueError(f"unknown metric {metric!r}")
     nq, w = q.shape
+    if cuda:
+        # the select kernel stages rows with 16-byte cp.async copies
+        # whenever W % 4 == 0, which a base off 16 bytes (a view at an
+        # odd offset) would fault; a fresh allocation is aligned
+        q, b = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, b))
     sms = (torch.cuda.get_device_properties(q.device).multi_processor_count
            if cuda else H100_SMS)
     vals = torch.empty((nq, k), dtype=torch.float32, device=q.device)

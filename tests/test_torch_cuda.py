@@ -233,6 +233,32 @@ def test_topk_select_many_splits(dev):
         assert torch.equal(gi, wi) and torch.equal(gv, wv), k
 
 
+@pytest.mark.parametrize("offset", ["q", "b", "both"])
+@pytest.mark.parametrize("k", [10, 1025])
+def test_topk_select_takes_rows_off_16_bytes(dev, k, offset):
+    """Contiguous views whose data starts 4 bytes past a 16-byte boundary,
+    with W a multiple of 4 (the select kernel's 16-byte copies): the
+    wrapper copies such an input before the launch, and the answers are
+    bit-identical to the plain version's."""
+    rng = np.random.default_rng(k)
+    w, nq, m = 8, 5, 2000
+
+    def shifted(n, off):
+        flat = _words(rng, 1, n * w + 1, dev)[0]
+        return flat[1:].view(n, w) if off else flat[: n * w].view(n, w)
+
+    q = shifted(nq, offset in ("q", "both"))
+    b = shifted(m, offset in ("b", "both"))
+    assert q.is_contiguous() and b.is_contiguous()
+    assert (q.data_ptr() % 16 != 0) == (offset in ("q", "both"))
+    assert (b.data_ptr() % 16 != 0) == (offset in ("b", "both"))
+    for metric in ("cham", "hamming"):
+        gv, gi = topk_ops.topk_select(q, b, k, d=250, metric=metric)
+        torch.cuda.synchronize()
+        wv, wi = topk_ops.topk_select_ref(q, b, k, d=250, metric=metric)
+        assert torch.equal(gi, wi) and torch.equal(gv, wv), metric
+
+
 @pytest.mark.parametrize("d", [1, 31, 4096, 4097, sparse_ops.MAX_D,
                                sparse_ops.MAX_D + 1, 2_000_001])
 def test_cabin_build_dense_every_d(dev, d):
@@ -398,3 +424,67 @@ def test_engine_on_cuda_equals_engine_on_cpu(dev, metric):
             assert np.array_equal(a, b)
         (ca, cd), (ga, gd) = [e.pairwise(queries) for e in engines]
         assert np.array_equal(ca, ga) and np.array_equal(cd, gd)
+
+
+@pytest.mark.parametrize("metric", ["cham", "hamming"])
+def test_width_zero_coo_on_cuda_equals_the_cpu(dev, metric, monkeypatch):
+    """A COO batch of width 0 through add_sparse and topk on the card: the
+    sparse Cabin kernel sees the padded width, never m = 0, and the
+    answers equal the CPU engine's."""
+    widths = []
+    real = sparse_ops.cabin_build_sparse
+
+    def spy(indices, values, **kw):
+        widths.append(indices.shape[1])
+        return real(indices, values, **kw)
+
+    monkeypatch.setattr(sparse_ops, "cabin_build_sparse", spy)
+    rng = np.random.default_rng(6)
+    params = CabinParams.create(5000, 300, seed=3)
+    engines = [QueryEngine(params, metric=metric, band_rows=64, device=d)
+               for d in ("cpu", dev)]
+    idx = rng.integers(0, 5000, size=(300, 40)).astype(np.int32)
+    val = rng.integers(0, 6, size=(300, 40)).astype(np.int32)
+    empty = (np.zeros((2, 0), np.int32), np.zeros((2, 0), np.int32))
+    before = build.LAUNCHES["cabin_build_sparse"]
+    for e in engines:
+        e.add_sparse(idx, val)
+        assert list(e.add_sparse(*empty)) == [300, 301]
+    queries = (np.zeros((3, 0), np.int32), np.zeros((3, 0), np.int32))
+    (ci, cv), (gi, gv) = [e.topk(queries, 5) for e in engines]
+    assert np.array_equal(ci, gi) and np.array_equal(cv, gv)
+    assert (gi[:, :2] == [300, 301]).all()
+    assert build.LAUNCHES["cabin_build_sparse"] - before == 3
+    assert 0 not in widths
+
+
+@pytest.mark.parametrize("metric", ["cham", "hamming"])
+def test_front_door_on_cuda_equals_the_engine(dev, metric):
+    """The FrontDoor's dispatcher thread drives a CUDA engine: coalesced
+    topk and radius answers equal the engine's own, bit for bit, and a
+    budgeted topk with a deadline that never fires is exact."""
+    from repro_torch.serve import Deadline, FrontDoor
+
+    rng = np.random.default_rng(9)
+    params = CabinParams.create(5000, 300, seed=3)
+    engine = QueryEngine(params, metric=metric, band_rows=64, device=dev)
+    idx = rng.integers(0, 5000, size=(3000, 40)).astype(np.int32)
+    val = rng.integers(0, 6, size=(3000, 40)).astype(np.int32)
+    engine.add_sparse(idx, val)
+    qs = [(torch.from_numpy(idx[i:i + 4] + 1).to(dev) % 5000,
+           torch.from_numpy(val[i:i + 4]).to(dev)) for i in range(0, 32, 4)]
+    with FrontDoor(engine, max_wait_ms=5.0) as fd:
+        handles = [fd.submit("topk", q, k=7) for q in qs]
+        far = fd.submit("topk", qs[0], k=7,
+                        deadline=Deadline(timeout_ms=1e9))
+        got = [h.result(timeout=60) for h in handles]
+        r = float(np.median(got[0].dists[:, -1]))
+        near = fd.radius(qs[1], r)
+        far = far.result(timeout=60)
+    want = [engine.topk(q, 7) for q in qs]
+    for res, (ids, dists) in zip(got + [far], want + want[:1]):
+        assert res.ok and not res.partial
+        assert np.array_equal(res.ids, ids) and np.array_equal(res.dists,
+                                                              dists)
+    for a, b in zip(near.hits, engine.radius(qs[1], r)):
+        assert np.array_equal(a, b)

@@ -249,8 +249,32 @@ def test_inputs_are_validated_before_any_cast():
     assert len(got.add_packed(packed)) == 3 and len(got) == 3
 
 
-@pytest.mark.parametrize("name", ["topk_budgeted", "merge", "migrate",
-                                  "save", "cluster", "shard"])
+@pytest.mark.parametrize("metric", ["hamming", "cham"])
+def test_coo_batches_of_width_zero_answer_as_the_reference(metric):
+    """A COO batch of width 0 (rows with no attribute) is padded to the
+    reference engine's smallest width bucket: it ingests as all-zero
+    sketches with the next ids, and queries of width 0 answer as the
+    reference's, through topk, radius and pairwise."""
+    d = 256
+    rng = np.random.default_rng(11)
+    ref, got = _engines(metric, d)
+    empty = (np.zeros((2, 0), np.int32), np.zeros((2, 0), np.int32))
+    none = (np.zeros((0, 0), np.int32), np.zeros((0, 0), np.int32))
+    for batch in (_coo(rng, 200), empty, none, _coo(rng, 40)):
+        np.testing.assert_array_equal(got.add_sparse(*batch),
+                                      ref.add_sparse(*batch))
+    ids = ref.ids()
+    np.testing.assert_array_equal(got.ids(), ids)
+    np.testing.assert_array_equal(_packed(got, ids), _packed(ref, ids))
+    assert not _packed(got, ids[200:202]).any()
+    zero_q = (np.zeros((3, 0), np.int32), np.zeros((3, 0), np.int32))
+    _check_queries(ref, got, zero_q, metric, d)
+    assert (got.topk(zero_q, 2)[0] == [200, 201]).all()
+    _check_queries(ref, got, _coo(rng, 5), metric, d)
+
+
+@pytest.mark.parametrize("name", ["merge", "migrate", "save", "cluster",
+                                  "shard"])
 def test_methods_of_later_slices_raise_not_implemented(name):
     _, got = _engines("cham", 200)
     with pytest.raises(NotImplementedError, match="slice"):
