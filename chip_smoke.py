@@ -57,7 +57,38 @@ Phases, each fatal on failure (exit code other than 0, no result line):
               the record: queries/s through the door, and of 5 direct topk
               calls on fresh batches with obs.configure(True) and 5 with
               (False), in turns.
- 6. lm      - llama3-8B at full width and depth (32 layers, d_model 4096,
+ 6. lifecycle - the cham engine's configuration (PubMed at full width,
+              d = 4096) through the index's lifecycle on the card, with
+              the launch counts set to 0 just before and B1-B4 risen just
+              after.  Merge: engine A ingests rows [0, 262,144), engine B
+              rows [262,144, 524,288) with its id counter offset to
+              262,144 (chunks of 16,384), A.merge(B): store_merges_total
+              reads 1, and A's packed rows, ids and weights equal a
+              sequential build's.  Shard: A.shard(n_shards=4):
+              stats()["n_shards"] and engine_shards read 4, with one
+              partition_rows label set a shard; answers equal A's before
+              the shard, then 16,384 more rows and 1% removed.  Migrate:
+              to d = theory.sketch_dim(p95 of the rows' nnz) (5,555 for
+              p95 247: W = 174 words, not a multiple of 4, so B2 and B3
+              take their 4-byte copies) in batches of 16,384, drive
+              "manual", journaled every 8 batches; at a journal step near
+              half way 16,384 rows are added (the fresh tier), pairwise
+              must raise, engine_migration_progress lie in (0, 1), and
+              QueryEngine.restore(journal) must answer as A; migrate_all
+              on both, after which each holds a fresh build's packed bits
+              at the new spec.  Save / restore: A.save, QueryEngine.restore
+              answer alike.  Every topk (256 queries, k = 10) and radius
+              (64 queries) answer is held against brute force over the
+              plain versions (mid-migration each tier in its own sketch
+              space, merged by (value, id)) or against the engine that
+              must answer the same, bit for bit.  For the record: ingest,
+              merge, shard rebuild, migration rows/s with and without
+              its journal steps (each save timed), save / restore
+              seconds (and the snapshot trees' host copies), snapshot
+              MB, and topk
+              queries/s unsharded (the restored engine) against 4 shards
+              (A), 5 fresh batches each, in turns.
+ 7. lm      - llama3-8B at full width and depth (32 layers, d_model 4096,
               32 heads / 8 KV heads, vocab 128,256, bf16), weights drawn on
               the card from --seed (16 GB).  ServeEngine.generate answers 4
               requests of 1,024 random prompt tokens, caches of 2,048
@@ -84,7 +115,7 @@ Phases, each fatal on failure (exit code other than 0, no result line):
               faulty layers, the end-to-end rule must reject the fault in
               every layer, and its readings under each fault are printed
               beside the sound ones.
- 7. kernels - each kernel against its plain version on the card, at the
+ 8. kernels - each kernel against its plain version on the card, at the
               shapes the main path gave it: B1-B5 bit for bit (B2 also at
               the kept band-walk chunks; B5 also against the sparse plain
               version of the same rows), B6 on the prefill's first
@@ -123,14 +154,22 @@ Phases, each fatal on failure (exit code other than 0, no result line):
               sheet).  For B6 also the time of PyTorch's
               scaled_dot_product_attention on the same inputs
               (library_ms, a yardstick the port never calls).
- 8. output  - the nvidia-smi line, one JSON line listing the kernels (with
-              the main path's launches and the frontdoor phase's), and
-              last the line {"ok": true, "device": {...}}.
+              Last, B1-B4 at the lifecycle phase's migrated width, bit for
+              bit and timed with their bounds (each kernel's entry
+              "migrated_width"): B1 on a 16,384-row chunk, B2 for 256
+              queries over the migrated store at k = 10, B3 for 64 queries
+              x 65,536 rows, B4 over the migrated store.
+ 9. output  - one JSON line of the lifecycle phase's records, the
+              nvidia-smi line, one JSON line listing the kernels (with the
+              main path's launches, the frontdoor phase's and the
+              lifecycle phase's), and last the line {"ok": true,
+              "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -147,7 +186,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import obs  # noqa: E402
 from repro_torch.configs.base import ParallelConfig  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
-from repro_torch.core import hashing, packing  # noqa: E402
+from repro_torch.core import hashing, packing, theory  # noqa: E402
 from repro_torch.core.cabin import CabinParams  # noqa: E402
 from repro_torch.core.cham import cham_from_table, cham_table  # noqa: E402
 from repro_torch.index import QueryEngine  # noqa: E402
@@ -189,6 +228,9 @@ FD_CLIENTS, FD_REQ_ROWS, FD_SAMPLE = 4, 8, 16
 FD_DEADLINE_QUERIES, FD_C1_ROWS = 8, 4096
 FD_C2_QUERIES, FD_C2_ROWS = 16, 65536
 FD_TIMED_CALLS = 5
+# the lifecycle phase: shards of the merged engine, and migration batches
+# between two journal steps
+LC_SHARDS, LC_JOURNAL_EVERY = 4, 8
 
 # the LM phase: llama3-8B at full width and depth, 4 requests of 1,024
 # prompt tokens, caches of 2,048 positions, 32 greedy new tokens
@@ -345,11 +387,11 @@ def dense_rows(idx: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def plain_dist(q: torch.Tensor, rows: torch.Tensor, metric: str
-               ) -> torch.Tensor:
+def plain_dist(q: torch.Tensor, rows: torch.Tensor, metric: str,
+               d: int = SKETCH_DIM) -> torch.Tensor:
     if metric == "cham":
         inner, _ = hamming_ops.pair_stats_ref(q, rows, op_ham=False)
-        table = cham_table(SKETCH_DIM, q.device, q.shape[1])
+        table = cham_table(d, q.device, q.shape[1])
         return cham_from_table(table,
                                hamming_ops.row_popcount_ref(q)[:, None],
                                hamming_ops.row_popcount_ref(rows)[None, :],
@@ -390,12 +432,7 @@ def main_path(metric: str, idx: torch.Tensor, val: torch.Tensor,
     params = CabinParams.create(N_DIMS, SKETCH_DIM, seed=0)
     engine = QueryEngine(params, metric=metric, device=idx.device)
     n = idx.shape[0]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for r0 in range(0, n, CHUNK):
-        engine.add_sparse(idx[r0:r0 + CHUNK], val[r0:r0 + CHUNK])
-    torch.cuda.synchronize()
-    ingest_s = time.perf_counter() - t0
+    ingest_s = ingest(engine, idx, val)
     t0 = time.perf_counter()
     dense_ids = engine.add_dense(dense)
     torch.cuda.synchronize()
@@ -509,10 +546,10 @@ def time_topk(metric: str, run: dict, batches: list, card: str
 
 
 def brute_topk(q_sk: torch.Tensor, rows: torch.Tensor, row_ids: np.ndarray,
-               metric: str, k: int = K) -> tuple[np.ndarray, np.ndarray]:
+               metric: str, k: int = K, d: int = SKETCH_DIM
+               ) -> tuple[np.ndarray, np.ndarray]:
     """The k nearest of `rows` by the plain top-k version: (ids, dists)."""
-    bv, bpos = topk_ops.topk_select_ref(q_sk, rows, k, d=SKETCH_DIM,
-                                        metric=metric)
+    bv, bpos = topk_ops.topk_select_ref(q_sk, rows, k, d=d, metric=metric)
     return row_ids[bpos.cpu().numpy()], bv.cpu().numpy()
 
 
@@ -757,6 +794,349 @@ def frontdoor_phase(run: dict, gen: torch.Generator, calls: dict,
         f"{direct['obs_off']} [{card}]")
     return {"launches": launches, "served_qps": served_qps,
             "direct": direct}
+
+
+# ---------------------------------------------------------------------------
+# the index's lifecycle: merge, shard, migrate with a journal, save/restore
+# ---------------------------------------------------------------------------
+
+
+def lifecycle_queries(gen: torch.Generator, device) -> tuple:
+    """A fresh batch of N_TOPK_QUERIES topk and N_RADIUS_QUERIES radius
+    COO queries (fresh, so that no answer comes from a result cache)."""
+    return (pubmed_rows(N_TOPK_QUERIES, gen, device),
+            pubmed_rows(N_RADIUS_QUERIES, gen, device))
+
+
+def engine_answers(engine, batch, r: float) -> tuple:
+    (q_idx, q_val), rq = batch
+    ids, dist = engine.topk((q_idx, q_val), K)
+    return ids, dist, engine.radius(rq, r)
+
+
+def same_answers(a: tuple, b: tuple) -> bool:
+    return (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+            and len(a[2]) == len(b[2])
+            and all(np.array_equal(x, y) for x, y in zip(a[2], b[2])))
+
+
+def tier_brute_force(tiers: list, batch, r: float, metric: str) -> tuple:
+    """topk and radius answers over stores scanned whole by the plain
+    versions, each in its own sketch space: `tiers` holds (store, params);
+    the topk candidates of every tier merge by (value, id)."""
+    (q_idx, q_val), (rq_idx, rq_val) = batch
+    cand_d, cand_i, hits = [], [], [[] for _ in range(rq_idx.shape[0])]
+    for store, params in tiers:
+        mat, n, ids = store.gather_alive()
+        if n == 0:
+            continue
+        rows = mat[:n].contiguous()
+        kw = dict(d=params.sketch_dim, psi_seed=params.psi_seed,
+                  pi_seed=params.pi_seed)
+        q_sk = sparse_ops.cabin_build_sparse_ref(q_idx, q_val, **kw)
+        bi, bd = brute_topk(q_sk, rows, ids, metric, k=min(K, n),
+                            d=params.sketch_dim)
+        cand_i.append(bi)
+        cand_d.append(bd)
+        rq_sk = sparse_ops.cabin_build_sparse_ref(rq_idx, rq_val, **kw)
+        dist = plain_dist(rq_sk, rows, metric, d=params.sketch_dim)
+        hit = (dist < torch.tensor(r, dtype=torch.float32)).cpu().numpy()
+        for qi in range(len(hits)):
+            hits[qi].append(ids[np.flatnonzero(hit[qi])])
+    ci, cd = np.concatenate(cand_i, 1), np.concatenate(cand_d, 1)
+    order = np.lexsort((ci, cd), axis=1)[:, :K]
+    return (np.take_along_axis(ci, order, 1), np.take_along_axis(cd, order, 1),
+            [np.sort(np.concatenate(h)) for h in hits])
+
+
+def ingest(engine, idx: torch.Tensor, val: torch.Tensor) -> float:
+    """add_sparse of the rows in chunks of CHUNK; returns the seconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r0 in range(0, idx.shape[0], CHUNK):
+        engine.add_sparse(idx[r0:r0 + CHUNK], val[r0:r0 + CHUNK])
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def timed_saves(engine, saves: list):
+    """Appends the seconds of each `engine.save` made inside the block to
+    `saves`; the engine's own save is back in place however it ends."""
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        type(engine).save(engine, *args, **kwargs)
+        saves.append(time.perf_counter() - t0)
+
+    engine.save = timed
+    try:
+        yield
+    finally:
+        del engine.save
+
+
+def lifecycle_phase(idx: torch.Tensor, val: torch.Tensor,
+                    gen: torch.Generator, rng: np.random.Generator,
+                    card: str) -> dict:
+    """The cham engine's configuration through the index's lifecycle, as
+    its users run it: two engines built apart and merged, the merged
+    engine sharded, migrated under drift to a wider sketch with a journal
+    (restored mid-flight from it), then saved and restored.  Every answer
+    is held against brute force or against an engine that must answer the
+    same, bit for bit.  Returns the phase's launch counts and records, and
+    the migrated store and queries for the kernel phase."""
+    metric, device = "cham", idx.device
+    params = CabinParams.create(N_DIMS, SKETCH_DIM, seed=0)
+    was = obs.enabled()
+    obs.configure(True)
+    rec: dict = {}
+    half = N_ROWS // 2
+    build.reset_launches()
+
+    # -- merge: A holds rows [0, half), B rows [half, N_ROWS) ---------------
+    a = QueryEngine(params, metric=metric, device=device)
+    b = QueryEngine(params, metric=metric, device=device)
+    b.store._next_id = half  # the merge tree's id offset of its workers
+    rec["ingest_rows_per_s"] = N_ROWS / (ingest(a, idx[:half], val[:half])
+                                         + ingest(b, idx[half:], val[half:]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a.merge(b)
+    torch.cuda.synchronize()
+    rec["merge_s"] = time.perf_counter() - t0
+    del b
+    check(a.obs_snapshot()["store_merges_total"] == 1,
+          "store_merges_total after one merge")
+    seq = QueryEngine(params, metric=metric, device=device, keep_raw=False)
+    ingest(seq, idx, val)
+    size = seq.store.size
+    check(a.store.size == size
+          and torch.equal(a.store.sk_buf[:size], seq.store.sk_buf[:size])
+          and np.array_equal(a.store.ids_at(np.arange(size)),
+                             seq.store.ids_at(np.arange(size)))
+          and np.array_equal(a.store.weights_at(np.arange(size)),
+                             seq.store.weights_at(np.arange(size))),
+          "the merged store's packed rows, ids and weights differ from a "
+          "sequential build's")
+    del seq
+    batch = lifecycle_queries(gen, device)
+    (q_idx, q_val), _ = batch
+    first = a.topk((q_idx[:N_RADIUS_QUERIES], q_val[:N_RADIUS_QUERIES]), K)
+    r = float(np.median(first[1][:, K - 1]))
+    tiers = [(a.store, params)]
+    check(same_answers(engine_answers(a, batch, r),
+                       tier_brute_force(tiers, batch, r, metric)),
+          "merged engine's topk / radius differ from brute force")
+
+    # -- shard into 4 partition groups --------------------------------------
+    batch = lifecycle_queries(gen, device)
+    unsharded = engine_answers(a, batch, r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a.shard(n_shards=LC_SHARDS)
+    a.sync_layout()
+    torch.cuda.synchronize()
+    rec["shard_rebuild_s"] = time.perf_counter() - t0
+    snap = a.obs_snapshot()
+    shards = {lab.split("shard=")[1] for lab in snap["partition_rows"]
+              if "role=serve" in lab}
+    check(a.stats()["n_shards"] == LC_SHARDS and snap["engine_shards"]
+          == LC_SHARDS and shards == {str(s) for s in range(LC_SHARDS)},
+          f"shard(): n_shards {a.stats()['n_shards']}, partition_rows "
+          f"shards {sorted(shards)}")
+    sharded = engine_answers(a, batch, r)
+    check(same_answers(sharded, unsharded),
+          "sharded answers differ from the unsharded engine's")
+    check(same_answers(sharded, tier_brute_force(tiers, batch, r, metric)),
+          "sharded answers differ from brute force")
+    # the ids the engine acknowledged, from the phase's own bookkeeping:
+    # the merge tree's ids, then each add takes the next CHUNK
+    acked = np.arange(N_ROWS + CHUNK)
+    add1 = pubmed_rows(CHUNK, gen, device)
+    check(np.array_equal(a.add_sparse(*add1), acked[N_ROWS:])
+          and np.array_equal(np.sort(a.ids()), acked),
+          "the sharded engine's ids differ from the ids it acknowledged")
+    kill = rng.choice(acked, len(acked) // 100, replace=False)
+    a.remove(kill)
+    batch = lifecycle_queries(gen, device)
+    check(same_answers(engine_answers(a, batch, r),
+                       tier_brute_force(tiers, batch, r, metric)),
+          "sharded answers after add and remove differ from brute force")
+
+    # -- migrate under drift, journaled ---------------------------------------
+    nnz = torch.cat([(val != 0).sum(1), (add1[1] != 0).sum(1)]).cpu().numpy()
+    p95 = int(np.ceil(np.percentile(nnz, 95)))
+    d_new = theory.sketch_dim(p95)
+    saves: list[float] = []  # seconds of each of A's journal saves
+
+    with tempfile.TemporaryDirectory() as journal, \
+            tempfile.TemporaryDirectory() as snapdir:
+        with timed_saves(a, saves):  # the migration journals through save
+            t0 = time.perf_counter()
+            mig = a.migrate(d=d_new, batch_rows=CHUNK, drive="manual",
+                            journal_dir=journal,
+                            journal_every=LC_JOURNAL_EVERY)
+            start_s = time.perf_counter() - t0
+            n_batches = -(-len(mig.src) // CHUNK)
+            half_batches = max(LC_JOURNAL_EVERY, n_batches // 2
+                               // LC_JOURNAL_EVERY * LC_JOURNAL_EVERY)
+            step_s = 0.0
+            for _ in range(half_batches - 1):
+                t0 = time.perf_counter()
+                a.migration_step()
+                step_s += time.perf_counter() - t0
+            add2 = pubmed_rows(CHUNK, gen, device)
+            fresh_ids = a.add_sparse(*add2)
+            t0 = time.perf_counter()
+            a.migration_step()  # a journal boundary: fresh rows are in it
+            step_s += time.perf_counter() - t0
+            check(np.array_equal(fresh_ids, np.arange(len(acked),
+                                                      len(acked) + CHUNK))
+                  and len(mig.fresh) == CHUNK
+                  and mig.fresh.contains(int(fresh_ids[0]))
+                  and mig.n_batches % LC_JOURNAL_EVERY == 0,
+                  "mid-migration adds did not land in the fresh tier")
+            acked = np.concatenate([acked, fresh_ids])
+            new_params = mig.new_spec.params
+            mig_tiers = [(mig.src, params), (mig.dst, new_params),
+                         (mig.fresh, new_params)]
+            # membership from the phase's bookkeeping, not from the tiers:
+            # each acknowledged row not removed is served by one tier
+            held = [store.gather_alive() for store, _ in mig_tiers]
+            held = np.concatenate([g.ids[:g.n_alive] for g in held])
+            check(len(held) == len(np.unique(held)) and np.array_equal(
+                np.sort(held), np.setdiff1d(acked, kill)),
+                "mid-migration tiers overlap, or their union is not the "
+                "acknowledged rows less the removed ones")
+            batch = lifecycle_queries(gen, device)
+            mid = engine_answers(a, batch, r)
+            check(same_answers(mid, tier_brute_force(mig_tiers, batch, r,
+                                                     metric)),
+                  "mid-migration topk / radius differ from the per-tier "
+                  "brute force")
+            try:
+                a.pairwise(batch[1], None)
+                check(False, "pairwise answered mid-migration")
+            except RuntimeError:
+                pass
+            progress = a.obs_snapshot()["engine_migration_progress"]
+            check(0.0 < progress < 1.0,
+                  f"engine_migration_progress {progress}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            twin = QueryEngine.restore(journal, device=device)
+            torch.cuda.synchronize()
+            journal_restore_s = time.perf_counter() - t0
+            check(twin.migrating and twin.migration.cursor == mig.cursor,
+                  "the journal did not restore the migration in flight")
+            batch = lifecycle_queries(gen, device)
+            check(same_answers(engine_answers(twin, batch, r),
+                               engine_answers(a, batch, r)),
+                  "the engine restored from the journal answers differently")
+            rows_left = len(mig.src)
+            t0 = time.perf_counter()
+            a.migrate_all()
+            torch.cuda.synchronize()
+            step_s += time.perf_counter() - t0
+        # the twin resumes the journal in the directory it was restored
+        # from, as a restarted process does; A is done with it
+        twin.migrate_all()
+        rec["migration_rows_per_s"] = mig.rows_migrated / step_s
+        rec["migration_rows_per_s_without_journal"] = (
+            mig.rows_migrated / (step_s - sum(saves[1:])))
+        rec["migration"] = {
+            "d_from": SKETCH_DIM, "d_to": d_new, "p95_nnz": p95,
+            "batches": mig.n_batches, "rows": mig.rows_migrated,
+            "start_s": start_s, "resketch_and_fold_s": step_s,
+            "journal_saves_s": saves,
+            "rows_after_journal_restore": rows_left,
+            "journal_restore_s": journal_restore_s}
+        check(not a.migrating and not twin.migrating and a.d == d_new,
+              "migrate_all left a migration in flight")
+
+        # a fresh build at the new spec from the same alive rows
+        fresh = QueryEngine(new_params, metric=metric, device=device,
+                            keep_raw=False)
+        ingest(fresh, torch.cat([idx, add1[0], add2[0]]),
+               torch.cat([val, add1[1], add2[1]]))
+        fresh.remove(kill)
+        want = fresh.store.gather_alive()
+        for who, eng in (("the migrated engine", a), ("its twin", twin)):
+            got = eng.store.gather_alive()
+            check(got.n_alive == want.n_alive
+                  and np.array_equal(got.ids, want.ids)
+                  and torch.equal(got.matrix[:got.n_alive],
+                                  want.matrix[:want.n_alive]),
+                  f"{who} does not hold a fresh build's packed bits")
+        batch = lifecycle_queries(gen, device)
+        want_ans = tier_brute_force([(fresh.store, new_params)], batch, r,
+                                    metric)
+        check(same_answers(engine_answers(fresh, batch, r), want_ans)
+              and same_answers(engine_answers(a, batch, r), want_ans)
+              and same_answers(engine_answers(twin, batch, r), want_ans),
+              "migrated answers differ from the fresh build's / brute force")
+        del fresh
+
+        # -- save and restore -----------------------------------------------
+        for part in ("store", "raw"):
+            t0 = time.perf_counter()
+            getattr(a, part).state_tree()
+            rec[f"{part}_state_tree_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.save(snapdir)
+        rec["save_s"] = time.perf_counter() - t0
+        rec["snapshot_mb"] = sum(
+            f.stat().st_size for f in Path(snapdir).rglob("*")
+            if f.is_file()) / 2**20
+        t0 = time.perf_counter()
+        restored = QueryEngine.restore(snapdir, device=device)
+        torch.cuda.synchronize()
+        rec["restore_s"] = time.perf_counter() - t0
+    batch = lifecycle_queries(gen, device)
+    check(same_answers(engine_answers(restored, batch, r),
+                       engine_answers(a, batch, r)),
+          "the restored engine answers differently")
+    launches = dict(build.LAUNCHES)
+    for kernel in ("cabin_build_sparse", "topk_select", "pair_stats",
+                   "row_popcount"):
+        check(launches[kernel] > 0,
+              f"kernel {kernel} was not launched in the lifecycle phase")
+
+    # -- for the record: topk queries/s, unsharded against 4 shards ----------
+    qps = {"unsharded": [], "sharded": []}
+    restored.sync_layout()
+    for _ in range(TIMED_RUNS):
+        q_idx, q_val = pubmed_rows(N_TOPK_QUERIES, gen, device)
+        answers = []
+        for name, eng in (("unsharded", restored), ("sharded", a)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            answers.append(eng.topk((q_idx, q_val), K))
+            qps[name].append(N_TOPK_QUERIES / (time.perf_counter() - t0))
+        check(all(np.array_equal(x, y) for x, y in zip(*answers)),
+              "sharded and unsharded topk differ")
+    rec["topk_qps"] = qps
+    obs.configure(was)
+    mat, n_alive, _ = a.store.gather_alive()
+    kw = dict(d=d_new, psi_seed=new_params.psi_seed,
+              pi_seed=new_params.pi_seed)
+    q_sk = sparse_ops.cabin_build_sparse_ref(q_idx, q_val, **kw)
+    log(f"[lifecycle] ingest into two engines "
+        f"{rec['ingest_rows_per_s']:.1f} rows/s; merge "
+        f"{rec['merge_s']:.3f}s (store bits = a sequential build's); "
+        f"shard({LC_SHARDS}) rebuild {rec['shard_rebuild_s']:.3f}s; "
+        f"migration d {SKETCH_DIM} -> {d_new} (p95 nnz {p95}) "
+        f"{rec['migration']} at {rec['migration_rows_per_s']:.1f} rows/s "
+        f"({rec['migration_rows_per_s_without_journal']:.1f} without the "
+        f"journal's saves); "
+        f"save {rec['save_s']:.3f}s, restore {rec['restore_s']:.3f}s, "
+        f"snapshot {rec['snapshot_mb']:.1f} MB; topk queries/s unsharded "
+        f"{qps['unsharded']}, {LC_SHARDS} shards {qps['sharded']}; kernel "
+        f"launches {launches}; every answer equal to brute force or its "
+        f"twin [{card}]")
+    return {"launches": launches, "record": rec, "d": d_new, "kw": kw,
+            "alive": mat[:n_alive].contiguous(), "q_sk": q_sk}
 
 
 # ---------------------------------------------------------------------------
@@ -1404,6 +1784,80 @@ def kernel_phases(params: CabinParams, idx: torch.Tensor, val: torch.Tensor,
             f"queries x {st.shape[0]} rows, plan {big_plan}: bit-identical "
             f"to the plain version in {passes} pass, kernel {big_ms:.4f} ms, "
             f"bound {big_bound:.4f} ms (k={K}: {one_ms:.4f} ms)")
+
+    # B1-B4 at the width the lifecycle phase migrated to (W = 174 for
+    # these rows: not a multiple of 4, so B2 and B3 take their 4-byte
+    # copies), bit for bit
+    life = runs["lifecycle"]
+    d_new, kw_new = life["d"], life["kw"]
+    w_new = packing.packed_width(d_new)
+    st, qs = life["alive"], life["q_sk"]
+    m_new = st.shape[0]
+    migrated = {}
+
+    def at_width(name, kernel, plain, n_bytes, ops, shape, plain_reps=1):
+        ms = [cuda_ms(kernel, 10) for _ in range(TIMED_RUNS)]
+        p_ms = cuda_ms(plain, plain_reps, warmup=0)
+        b_ms, b_by = bound(n_bytes, ops, rates)
+        migrated[name] = {"d": d_new, "w": w_new, "shape": shape,
+                          "max_abs_err": 0, "ms": float(np.median(ms)),
+                          "ms_runs": ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                          "bound_by": b_by}
+        log(f"[kernel:{name}:d={d_new}] {shape}: bit-identical to the plain "
+            f"version, kernel {TIMED_RUNS} runs {ms} ms (median "
+            f"{float(np.median(ms)):.4f} ms), plain {p_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}: {n_bytes:.0f} bytes, operations {ops})")
+
+    got = sparse_ops.cabin_build_sparse(ci, cv, **kw_new)
+    check(torch.equal(got,
+                      sparse_ops.cabin_build_sparse_ref(ci, cv, **kw_new)),
+          f"cabin_build_sparse != plain version at d = {d_new}")
+    live = int((cv != 0).sum())
+    psi_hits = int(hashing.psi_bits(ci, cv, kw_new["psi_seed"]).sum())
+    at_width("cabin_build_sparse",
+             lambda: sparse_ops.cabin_build_sparse(ci, cv, **kw_new),
+             lambda: sparse_ops.cabin_build_sparse_ref(ci, cv, **kw_new),
+             (ci.numel() + live) * 4 + CHUNK * w_new * 4,
+             {"int32": live * 22 + psi_hits * 14},
+             f"{CHUNK} x {M_SLOTS} slots -> ({CHUNK}, {w_new})")
+    check(torch.equal(hamming_ops.row_popcount(st),
+                      hamming_ops.row_popcount_ref(st)),
+          f"row_popcount != plain version at d = {d_new}")
+    at_width("row_popcount", lambda: hamming_ops.row_popcount(st),
+             lambda: hamming_ops.row_popcount_ref(st),
+             m_new * w_new * 4 + m_new * 4,
+             {"int32": m_new * w_new, "popc": m_new * w_new},
+             f"({m_new}, {w_new})")
+    qa, rows = qs[:N_RADIUS_QUERIES].contiguous(), st[:65536].contiguous()
+    gi, gh = hamming_ops.pair_stats(qa, rows)
+    wi, wh = hamming_ops.pair_stats_ref(qa, rows)
+    check(torch.equal(gi, wi) and torch.equal(gh, wh)
+          and torch.equal(hamming_ops.pair_stats(qa, rows, op_ham=False)[0],
+                          wi),
+          f"pair_stats != plain version at d = {d_new}")
+    mq, nr = qa.shape[0], rows.shape[0]
+    at_width("pair_stats",
+             lambda: hamming_ops.pair_stats(qa, rows, op_ham=False),
+             lambda: hamming_ops.pair_stats_ref(qa, rows, op_ham=False),
+             (mq + nr) * w_new * 4 + mq * nr * 4,
+             pair_ops_needed(mq, nr, w_new),
+             f"{mq} x {nr} x {w_new} words, inner only")
+    for metric in ("cham", "hamming"):
+        gv, gi = topk_ops.topk_select(qs, st, K, d=d_new, metric=metric)
+        wv, wi = topk_ops.topk_select_ref(qs, st, K, d=d_new, metric=metric)
+        check(torch.equal(gi, wi) and torch.equal(gv, wv),
+              f"topk_select != plain version at d = {d_new} ({metric})")
+    nq = qs.shape[0]
+    at_width("topk_select",
+             lambda: topk_ops.topk_select(qs, st, K, d=d_new),
+             lambda: topk_ops.topk_select_ref(qs, st, K, d=d_new),
+             topk_bytes(nq, m_new, w_new, K),
+             topk_ops_needed(nq, m_new, w_new),
+             f"{nq} queries x {m_new} rows, k={K}, plan "
+             f"{topk_ops.plan(nq, m_new, K, w_new, sms)}")
+    for entry in out:
+        if entry["name"] in migrated:
+            entry["migrated_width"] = migrated[entry["name"]]
     return out
 
 
@@ -1469,6 +1923,7 @@ def smoke(seed: int, device=torch.device("cuda")) -> None:
     for m in ("cham", "hamming"):
         del runs[m]["engine"]
     runs["dense_coo"] = (d_idx, d_val)
+    runs["lifecycle"] = lifecycle_phase(idx, val, gen, rng, card)
 
     qkv, lm_launches = lm_phase(seed, card)
     launches["flash_attention"] = lm_launches["flash_attention"]
@@ -1480,6 +1935,9 @@ def smoke(seed: int, device=torch.device("cuda")) -> None:
                             sass, usage)
     for entry in kernels:
         entry["frontdoor_launches"] = served["launches"][entry["name"]]
+        entry["lifecycle_launches"] = runs["lifecycle"]["launches"][
+            entry["name"]]
+    print(json.dumps({"lifecycle": runs["lifecycle"]["record"]}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

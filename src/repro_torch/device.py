@@ -19,6 +19,11 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def to_host(x) -> np.ndarray:
+    """A tensor (on any device) or array-like as a host numpy array."""
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
 def on_device(x, device: torch.device) -> torch.Tensor:
     """A numpy array, nested sequence or tensor as a tensor on `device`,
     dtype kept."""

@@ -1,29 +1,37 @@
-"""The partition model: a base tier and a delta tier over one store.
+"""The partition model: tiers, shards and spec tiers as one object.
 
-The port of the JAX package's `repro.index.partition` at one shard:
+The port of the JAX package's `repro.index.partition`:
 
-  * `Partition`: one tier of serving state, a slot subset of one store in
-    one of two kinds: ``sorted-banded`` (a weight-banded `BandedLayout`
-    served through the progressive band walk) or ``brute-delta`` (an
-    unsorted slot list in id order, scanned brute-force).
-  * `PartitionSet`: the serving object the engine holds, a (base, delta)
-    pair.  Fresh adds go to the delta, removes flip alive masks, and
-    `sync` advances the set across any version range of one slot epoch in
-    O(delta); compaction rebuilds, and the `merge_ratio` policy folds the
-    delta into a new base.
-  * `merge_topk_parts`, `topk_across_tiers` and `radius_hits`: the one
-    (value, id)-lexicographic merge across partitions, the same merge
-    across partition sets, and the per-tier radius collection.
+  * `Partition`: one unit of serving state, a slot subset of one store
+    (on the store's device), in one of two kinds: ``sorted-banded`` (a
+    weight-banded `BandedLayout` served through the progressive band
+    walk) or ``brute-delta`` (an unsorted slot list in id order, scanned
+    brute-force), with the SketchSpec its rows were sketched under.
+  * `PartitionSet`: the serving object the engine holds, `n_shards`
+    (base, delta) groups over one store, rows routed by ``id % n_shards``
+    (`shard_of`).  Fresh adds go to their shard's delta, removes flip
+    alive masks, and `sync` advances the set across any version range of
+    one slot epoch in O(delta); compaction rebuilds, and the `merge_ratio`
+    policy folds each shard's delta into a new base on its own.
+  * `merge_topk_parts`, `topk_across_tiers`, `radius_hits` and
+    `snapshot_subtrees`: the one (value, id)-lexicographic merge across
+    partitions, the same merge across partition sets (the mid-migration
+    path), the per-tier radius collection, and one checkpoint subtree per
+    backing store.
 
 Partitions are disjoint and cover the alive membership, each returns an
 exact (or, under the running k-th bound, a provably sufficient) k-best,
 and the merge is the lexicographic rule `topk_rows_banded` uses across
-chunks, so answers equal one scan over the membership.
+chunks, so answers equal one scan over the membership at every shard
+count.  In the port this holds bit for bit under both metrics: Cham is a
+pure function of the integer statistics.
 
-A deadline budgets the base partition's banded walk; a walk it stops
-makes the answer partial, with the walk's residual certificate gap.  The
+A deadline budgets every base partition's banded walk; a walk it stops
+makes the answer partial, with the largest residual certificate gap.  The
 merge is traced as the ``partition.merge`` span, and each partition's
-alive rows are a ``partition_rows`` gauge.
+alive rows are a ``partition_rows`` gauge.  A sharded rebuild crosses the
+``shard.rebalance`` crash point before any group is replaced: layouts are
+derived state, so the next sync simply retries.
 """
 
 from __future__ import annotations
@@ -36,8 +44,13 @@ from repro_torch.core import allpairs
 from repro_torch.core.allpairs import KBEST_KEY_PAD, kbest_lex_merge
 from repro_torch.core.packing import padded_take
 from repro_torch.index.bands import BandedLayout
+from repro_torch.index.mergeable import (MergeIncompatible,
+                                        check_spec_compatible)
 from repro_torch.index.store import SketchStore
 from repro_torch.obs.registry import NULL_REGISTRY
+from repro_torch.runtime import faultinject
+
+_CP_REBALANCE = faultinject.declare("shard.rebalance")
 
 PARTITION_KINDS = ("sorted-banded", "brute-delta")
 
@@ -78,12 +91,20 @@ def _tighten(running: np.ndarray | None, vals: np.ndarray, kk: int
     return kth.copy() if running is None else np.minimum(running, kth)
 
 
+def shard_of(ids: np.ndarray, n_shards: int) -> np.ndarray:
+    """THE row-routing rule: ``id % n_shards``.  Deterministic and
+    history-independent, and stable across compaction (ids survive, slots
+    do not).  Slot-level routing is `SketchStore.route_slots`."""
+    return np.asarray(ids, np.int64) % int(n_shards)
+
+
 class Partition:
-    """One tier of serving state over a slot subset of one store."""
+    """One tier of one shard: a slot subset of one store, on its device."""
 
-    __slots__ = ("kind", "banded", "slots", "ids", "_cache", "_store")
+    __slots__ = ("kind", "shard", "spec", "banded", "slots", "ids",
+                 "_cache", "_store")
 
-    def __init__(self, kind: str, store: SketchStore, *,
+    def __init__(self, kind: str, shard: int, store: SketchStore, *,
                  metric: str | None = None, band_rows: int = 1024,
                  registry=None, slots: np.ndarray | None = None):
         if kind not in PARTITION_KINDS:
@@ -91,6 +112,8 @@ class Partition:
                 f"partition kind must be one of {PARTITION_KINDS}, "
                 f"got {kind!r}")
         self.kind = kind
+        self.shard = int(shard)
+        self.spec = store.spec
         self._store = store
         if kind == "sorted-banded":
             self.banded = BandedLayout(store, metric, band_rows=band_rows,
@@ -131,8 +154,8 @@ class Partition:
 
     @property
     def matrix(self) -> torch.Tensor | None:
-        """The pow2-padded device matrix, gathered at first use after a
-        sync (a copy, so later appends to the store do not reach it)."""
+        """The pow2-padded matrix on the store's device, gathered at first
+        use after a sync (a copy, so later appends do not reach it)."""
         if self.banded is not None:
             return self.banded.matrix
         if self._cache is None and len(self.slots):
@@ -140,115 +163,220 @@ class Partition:
         return self._cache
 
 
-class PartitionSet:
-    """A (base, delta) partition pair over one store: the engine's serving
-    structure.
+class _ShardGroup:
+    """One shard's (base, delta) partition pair."""
 
-    The base is a `BandedLayout` over the membership at the last fold;
-    fresh adds go to the brute-delta partition; removes flip alive masks.
-    The delta folds into a new base when its live rows exceed
-    `merge_ratio * base_alive`, or when tombstones outnumber the base's
-    alive rows (`merge_ratio=0` rebuilds on every mutation, None folds
-    only on compaction).  `registry` receives the banding counters and the
-    `partition_rows` gauges."""
+    __slots__ = ("shard", "base", "delta")
+
+    def __init__(self, shard: int, base: Partition, delta: Partition):
+        self.shard = shard
+        self.base = base
+        self.delta = delta
+
+
+class PartitionSet:
+    """`n_shards` (base, delta) partition groups over one store: the
+    engine's serving structure.
+
+    Per shard, the base is a `BandedLayout` over the shard's membership at
+    the last fold; fresh adds route by ``id % n_shards`` into per-shard
+    brute-delta partitions; removes flip alive masks.  A shard's delta
+    folds into a new base when its live rows exceed `merge_ratio *
+    base_alive`, or when tombstones outnumber the base's alive rows,
+    without touching its siblings (`merge_ratio=0` rebuilds on every
+    mutation, None folds only on compaction).
+
+    `topk` walks the groups in shard order with a global running k-th
+    bound, which each banded walk receives as `init_kth`.  Every shard
+    lives on the store's device.  `role` labels the gauges ("serve", or a
+    migration tier's "migrate-dst" / "migrate-fresh").  `registry`
+    receives the banding counters and the `partition_rows` gauges."""
 
     def __init__(self, store: SketchStore, metric: str,
                  band_rows: int = 1024, merge_ratio: float | None = 0.125,
-                 registry=None):
+                 registry=None, n_shards: int = 1, role: str = "serve"):
+        if int(n_shards) < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
         self.metric = metric
         self.d = store.d
         self.band_rows = int(band_rows)
         self.merge_ratio = merge_ratio
         self.registry = NULL_REGISTRY if registry is None else registry
+        self.n_shards = int(n_shards)
+        self.role = role
         self.n_merges = -1  # the initial build below is not a merge
+        self._groups: list[_ShardGroup] = []
         self._rebuild(store)
-        self._register_gauges(store.device)
+        self._register_gauges()
+
+    # -- construction / synchronisation ------------------------------------
+
+    def _build_group(self, shard: int, store: SketchStore,
+                     slots: np.ndarray) -> _ShardGroup:
+        base = Partition("sorted-banded", shard, store, metric=self.metric,
+                         band_rows=self.band_rows, registry=self.registry,
+                         slots=slots)
+        delta = Partition("brute-delta", shard, store)
+        return _ShardGroup(shard, base, delta)
 
     def _rebuild(self, store: SketchStore) -> None:
-        """Fold the whole alive membership into a fresh sorted base."""
-        self.base = Partition("sorted-banded", store, metric=self.metric,
-                              band_rows=self.band_rows,
-                              registry=self.registry,
-                              slots=store.alive_slots())
-        self.delta = Partition("brute-delta", store)
+        """Re-route the alive membership to shards and fold every shard
+        into a fresh sorted base.  The groups are built aside and swapped
+        in at the end: a crash at ``shard.rebalance`` leaves the previous
+        groups in place, and the next sync retries."""
+        if self.n_shards > 1:
+            faultinject.crash_point(_CP_REBALANCE)
+        slots = store.alive_slots()
+        self._groups = [self._build_group(s, store, sh_slots)
+                        for s, sh_slots in enumerate(
+                            store.route_slots(slots, self.n_shards))]
+        self._store = store
+        # every row this set serves was sketched under this spec
+        self.spec = store.spec
         st = store.stamp()
         self.version, self.epoch, self.seen_size = (
             st.version, st.epoch, st.size)
         self.seen_removed = store.removed_count
         self.n_merges += 1
 
+    def _fold_group(self, g: _ShardGroup, store: SketchStore) -> None:
+        """Shard-local merge: fold ONE shard's delta into its base; the
+        siblings keep their layouts."""
+        slots = store.alive_slots()
+        if self.n_shards > 1:
+            keep = shard_of(store.ids_at(slots), self.n_shards) == g.shard
+            slots = slots[keep]
+        fresh = self._build_group(g.shard, store, slots)
+        g.base, g.delta = fresh.base, fresh.delta
+        self.n_merges += 1
+
     def sync(self, store: SketchStore) -> "PartitionSet":
         """Advance to the store's current (version, epoch): adds within
-        the epoch extend the delta, removes refresh the alive masks, and
-        an epoch change (compaction), merge_ratio=0 or the fold policy
-        rebuilds."""
+        the epoch go to their shards' deltas, removes refresh the alive
+        masks, an epoch change (compaction) or merge_ratio=0 rebuilds, and
+        the fold policy folds only the shard that tripped it."""
         st = store.stamp()
+        self._store = store
         if (st.version, st.epoch) == (self.version, self.epoch):
             return self
         if st.epoch != self.epoch or self.merge_ratio == 0:
             self._rebuild(store)
             return self
         added = st.size > self.seen_size
+        new_by_shard = None
         if added:
-            self.delta.extend(store.tail_slots(self.seen_size))
+            new_by_shard = store.route_slots(
+                store.tail_slots(self.seen_size), self.n_shards)
             self.seen_size = st.size
         removed = store.removed_count != self.seen_removed
-        delta_mask = None
         if removed:
             self.seen_removed = store.removed_count
-            self.base.banded.refresh_alive(store)
-            delta_mask = store.alive_at(self.delta.slots)
-            live_delta = int(np.count_nonzero(delta_mask))
-        else:
-            live_delta = len(self.delta.slots)
-        base_alive = self.base.banded.n_alive
-        dead_base = self.base.banded.n - base_alive
-        if (self.merge_ratio is not None
-                and (live_delta > self.merge_ratio * max(base_alive, 1)
-                     or dead_base > max(base_alive, 1))):
-            self._rebuild(store)
-            return self
-        if added or removed:
-            self.delta.refresh(store, delta_mask)
+        for g in self._groups:
+            if added:
+                g.delta.extend(new_by_shard[g.shard])
+            delta_mask = None
+            if removed:
+                g.base.banded.refresh_alive(store)
+                delta_mask = store.alive_at(g.delta.slots)
+                live_delta = int(np.count_nonzero(delta_mask))
+            else:
+                live_delta = len(g.delta.slots)
+            base_alive = g.base.banded.n_alive
+            dead_base = g.base.banded.n - base_alive
+            if (self.merge_ratio is not None
+                    and (live_delta > self.merge_ratio * max(base_alive, 1)
+                         or dead_base > max(base_alive, 1))):
+                self._fold_group(g, store)
+                continue
+            if added or removed:
+                g.delta.refresh(store, delta_mask)
         self.version = st.version
+        return self
+
+    # -- merge (the Mergeable contract, repro_torch.index.mergeable) --------
+
+    def merge(self, other: "PartitionSet | None" = None) -> "PartitionSet":
+        """Absorb the backing store's just-merged rows and return self,
+        called after `SketchStore.merge` committed.  Layouts are derived,
+        so the merge IS a sync against the merged store: an append-path
+        merge arrives as tail slots routed to each shard's delta, an
+        interleave-path merge bumped the epoch and rebuilds.  `other` (the
+        absorbed store's set, when there is one) is only validated; the
+        gauges re-point at the live groups afterwards."""
+        if other is not None:
+            if other.metric != self.metric:
+                raise MergeIncompatible(
+                    f"PartitionSet.merge: metric mismatch "
+                    f"({self.metric!r} vs {other.metric!r})")
+            if self.spec is not None or other.spec is not None:
+                check_spec_compatible(other.spec, self.spec,
+                                      what="PartitionSet.merge")
+        self.sync(self._store)
+        self._register_gauges()
         return self
 
     # -- introspection ------------------------------------------------------
 
+    def partitions(self) -> list[Partition]:
+        """Every partition in shard order, base before delta."""
+        out: list[Partition] = []
+        for g in self._groups:
+            out.append(g.base)
+            out.append(g.delta)
+        return out
+
+    @property
+    def base(self) -> BandedLayout:
+        """The single-shard base tier; a sharded set has one per shard
+        (iterate `partitions()`)."""
+        if len(self._groups) != 1:
+            raise AttributeError(
+                f"a {self.n_shards}-shard PartitionSet has no single base "
+                "tier; iterate partitions()")
+        return self._groups[0].base.banded
+
     @property
     def delta_n(self) -> int:
-        return self.delta.n_rows
+        return sum(g.delta.n_rows for g in self._groups)
 
     @property
     def n_alive(self) -> int:
-        return self.base.n_rows + self.delta.n_rows
+        return sum(g.base.n_rows + g.delta.n_rows for g in self._groups)
 
     @property
     def base_rows(self) -> int:
-        return self.base.banded.n
+        return sum(g.base.banded.n for g in self._groups)
 
     @property
     def base_alive(self) -> int:
-        return self.base.banded.n_alive
+        return sum(g.base.banded.n_alive for g in self._groups)
 
     @property
     def n_bands(self) -> int:
-        return self.base.banded.n_bands
+        return sum(g.base.banded.n_bands for g in self._groups)
 
     # -- obs ----------------------------------------------------------------
 
-    def _register_gauges(self, device: torch.device) -> None:
+    def _register_gauges(self) -> None:
         """`partition_rows` labelled by (shard, kind, role, device): read-
-        time callbacks onto the live partitions, so a fold is visible at
-        the next scrape.  One shard and the serving role: shards and
-        migration tiers come with later slices of the port."""
+        time callbacks onto the live groups, so a fold or rebalance shows
+        at the next scrape.  Re-registering the same labels (a successor
+        set) points them at the newest set."""
         if self.registry.is_null:
             return
-        for kind, rows in (("sorted-banded", lambda: self.base.n_rows),
-                           ("brute-delta", lambda: self.delta.n_rows)):
-            self.registry.gauge_fn(
-                "partition_rows", (lambda rows=rows: float(rows())),
-                shard="0", kind=kind, role="serve", device=str(device))
+        for g in self._groups:
+            for kind in PARTITION_KINDS:
+                self.registry.gauge_fn(
+                    "partition_rows",
+                    (lambda s=g.shard, k=kind: float(self._rows_of(s, k))),
+                    shard=str(g.shard), kind=kind, role=self.role,
+                    device=str(self._store.device))
+
+    def _rows_of(self, shard: int, kind: str) -> int:
+        if shard >= len(self._groups):
+            return 0
+        g = self._groups[shard]
+        return g.base.n_rows if kind == "sorted-banded" else g.delta.n_rows
 
     # -- serving ------------------------------------------------------------
 
@@ -257,12 +385,14 @@ class PartitionSet:
              init_kth: np.ndarray | None = None
              ) -> tuple[np.ndarray, np.ndarray]:
         """Cross-partition k-NN: (ids (Q, k'), dists (Q, k')), k' = min(k,
-        n_alive), ascending by (distance, id).  The base walk runs first;
-        its k-th bound (with `init_kth`, a bound from outside this set)
-        cannot help the brute-force delta scan, which is already exact.
-        `deadline` budgets the banded walk (the delta scan is O(delta) and
-        exact); `info_out` receives the walk's report (`partial`,
-        `cert_gap`, bands and rows visited)."""
+        n_alive), ascending by (distance, id), equal to one scan over the
+        alive membership at every shard count.  Groups are walked in shard
+        order, base then delta; the running global k-th bound tightens
+        after every merge and enters the next banded walk as `init_kth`
+        (`init_kth` seeds it from partitions outside this set).
+        `deadline` budgets every banded walk (the delta scans are O(delta)
+        and exact); `info_out` receives `partial`, the largest `cert_gap`
+        and the bands and rows visited."""
         if info_out is not None:
             info_out.update(partial=False, cert_gap=0.0)
         kk = min(k, self.n_alive)
@@ -272,44 +402,71 @@ class PartitionSet:
         best: tuple[np.ndarray, np.ndarray] | None = None
         running = (None if init_kth is None
                    else np.asarray(init_kth, np.float32)[:q_valid])
-        with obs.span("partition.merge", shards=1, k=kk, role="serve"):
-            if self.base.banded.n_alive:
-                best = self.base.banded.topk(
-                    queries, query_weights, kk, q_valid=q_valid,
-                    deadline=deadline, info_out=info_out, init_kth=running)
-            if self.delta.n_rows:
-                # pad_k keeps k == kk while the delta holds fewer rows
-                pos, vals = allpairs.topk_rows(
-                    queries[:q_valid], self.delta.matrix, kk, d=self.d,
-                    metric=self.metric, m_valid=self.delta.n_rows,
-                    pad_k=True)
-                ids = np.full(pos.shape, KBEST_KEY_PAD, np.int64)
-                real = pos >= 0
-                ids[real] = self.delta.ids[pos[real]]
-                part = (ids, vals)
-                best = (part if best is None
-                        else merge_topk_parts(kk, [best, part]))
+        partial, cert_gap = False, 0.0
+        bands_visited = rows_visited = 0
+        want_info = info_out is not None or deadline is not None
+        with obs.span("partition.merge", shards=self.n_shards, k=kk,
+                      role=self.role):
+            for g in self._groups:
+                if g.base.banded.n_alive:
+                    st: dict | None = {} if want_info else None
+                    part = g.base.banded.topk(
+                        queries, query_weights, kk, q_valid=q_valid,
+                        deadline=deadline, info_out=st, init_kth=running)
+                    if st is not None:
+                        partial |= bool(st.get("partial"))
+                        cert_gap = max(cert_gap, st.get("cert_gap", 0.0))
+                        bands_visited += st.get("bands_visited", 0)
+                        rows_visited += st.get("rows_visited", 0)
+                    best = (part if best is None
+                            else merge_topk_parts(kk, [best, part]))
+                    running = _tighten(running, best[1], kk)
+                if g.delta.n_rows:
+                    # pad_k keeps k == kk while the delta holds fewer rows
+                    pos, vals = allpairs.topk_rows(
+                        queries[:q_valid], g.delta.matrix, kk, d=self.d,
+                        metric=self.metric, m_valid=g.delta.n_rows,
+                        pad_k=True)
+                    ids = np.full(pos.shape, KBEST_KEY_PAD, np.int64)
+                    real = pos >= 0
+                    ids[real] = g.delta.ids[pos[real]]
+                    part = (ids, vals)
+                    best = (part if best is None
+                            else merge_topk_parts(kk, [best, part]))
+                    running = _tighten(running, best[1], kk)
+        if info_out is not None:
+            info_out.update(partial=partial, cert_gap=cert_gap,
+                            bands_visited=bands_visited,
+                            rows_visited=rows_visited)
+        assert best is not None  # kk > 0 implies some non-empty partition
         return best
 
     def radius_tiers(self, query_weights: np.ndarray, radius: float
                      ) -> list[tuple[torch.Tensor, int, np.ndarray]]:
         """Per-partition (matrix, n_selected, ids) selections for a radius
-        query: the base after its band prune, the delta whole."""
+        query: each shard's base after its band prune, each delta whole.
+        The memberships partition the alive set, so the per-tier hits
+        union to the answer over the full membership."""
         out = []
-        bl = self.base.banded
-        if bl.n_alive:
-            mask = bl.candidate_bands(query_weights, radius)
-            if not self.registry.is_null:
-                kept = int(np.count_nonzero(mask))
-                bl._c_queries.inc()
-                bl._c_visited.inc(kept)
-                bl._c_pruned.inc(bl.n_bands - kept)
-            sel, n_sel, sel_ids = bl.select(mask)
-            if n_sel:
-                out.append((sel, n_sel, sel_ids))
-        if self.delta.n_rows:
-            out.append((self.delta.matrix, self.delta.n_rows, self.delta.ids))
+        for g in self._groups:
+            bl = g.base.banded
+            if bl.n_alive:
+                mask = bl.candidate_bands(query_weights, radius)
+                if not self.registry.is_null:
+                    kept = int(np.count_nonzero(mask))
+                    bl._c_queries.inc()
+                    bl._c_visited.inc(kept)
+                    bl._c_pruned.inc(bl.n_bands - kept)
+                sel, n_sel, sel_ids = bl.select(mask)
+                if n_sel:
+                    out.append((sel, n_sel, sel_ids))
+            if g.delta.n_rows:
+                out.append((g.delta.matrix, g.delta.n_rows, g.delta.ids))
         return out
+
+
+# the n_shards=1 face of PartitionSet, the name the JAX package keeps
+TieredLayout = PartitionSet
 
 
 def topk_across_tiers(kk: int, tiers, *, q_valid: int
@@ -348,3 +505,16 @@ def radius_hits(layout: PartitionSet, queries: torch.Tensor,
             seg = sel_ids[by_q[splits[qi]: splits[qi + 1], 1]]
             if seg.size:
                 hits[qi].append(seg)
+
+
+def snapshot_subtrees(store: SketchStore, raw=None, migration=None) -> dict:
+    """One checkpoint subtree per backing store (layouts are derived state
+    and never saved: a restored engine rebuilds them, sharded or not).
+    The subtree names are the JAX package's ``repro.index.v2`` format."""
+    tree: dict = {"store": store.state_tree()}
+    if raw is not None:
+        tree["raw"] = raw.state_tree()
+    if migration is not None:
+        tree["mig_dst"] = migration.dst.state_tree()
+        tree["mig_fresh"] = migration.fresh.state_tree()
+    return tree

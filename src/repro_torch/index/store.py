@@ -1,7 +1,8 @@
 """SketchStore: a growing, device-resident collection of packed sketches.
 
-The port of the JAX package's `repro.index.store` (merge and sharded
-placement are left to later slices):
+The port of the JAX package's `repro.index.store` (its opt-in placement
+under a JAX sharding, `place`, is not ported: the port's stores live on
+one device):
 
   * Power-of-two buffers.  Sketches live in a device tensor whose
     capacity is a power of two (`pow2_bucket`), grown by copying into a
@@ -18,6 +19,14 @@ layout, capacity checks and id translation never touch the device.
 Mutations count into the engine's registry (`set_registry`); compaction
 is traced as the ``store.compact`` span and crosses the ``store.compact``
 crash point before it changes anything.
+
+Stores are MERGEABLE (repro_torch.index.mergeable): `merge` combines two
+id-disjoint stores of one spec, appending when the id ranges do not
+interleave (no epoch bump, so layouts absorb the rows as delta) and
+re-gathering in id order when they do.  It is traced as ``store.merge``
+and crosses the ``merge.combine`` crash point before it changes anything.
+`state_tree` / `from_state` are the checkpoint round trip, array for
+array the JAX package's.
 """
 
 from __future__ import annotations
@@ -32,11 +41,14 @@ from repro_torch import obs
 from repro_torch.core import packing
 from repro_torch.core.cabin import CabinParams
 from repro_torch.core.packing import pow2_bucket
-from repro_torch.device import resolve_device
+from repro_torch.device import on_device, resolve_device, to_host
+from repro_torch.index.mergeable import (MergeIncompatible, check_id_disjoint,
+                                         check_spec_compatible)
 from repro_torch.obs.registry import NULL_REGISTRY
 from repro_torch.runtime import faultinject
 
 _CP_COMPACT = faultinject.declare("store.compact")
+_CP_MERGE = faultinject.declare("merge.combine")
 
 
 @dataclass(frozen=True)
@@ -50,6 +62,27 @@ class SketchSpec:
     @property
     def d(self) -> int:
         return self.params.sketch_dim
+
+    def successor(self, params: CabinParams) -> "SketchSpec":
+        if params.n_dims != self.params.n_dims:
+            raise ValueError(
+                f"spec migration cannot change n_dims "
+                f"({self.params.n_dims} -> {params.n_dims}): the raw rows "
+                "live in the original categorical space")
+        return SketchSpec(self.version + 1, params)
+
+    def meta(self) -> dict:
+        """The spec as the JAX package's snapshots record it."""
+        return {"version": self.version, "n_dims": self.params.n_dims,
+                "sketch_dim": self.params.sketch_dim,
+                "psi_seed": self.params.psi_seed,
+                "pi_seed": self.params.pi_seed}
+
+    @classmethod
+    def from_meta(cls, m: dict) -> "SketchSpec":
+        return cls(int(m["version"]), CabinParams(
+            n_dims=int(m["n_dims"]), sketch_dim=int(m["sketch_dim"]),
+            psi_seed=int(m["psi_seed"]), pi_seed=int(m["pi_seed"])))
 
 
 class VersionStamp(NamedTuple):
@@ -111,6 +144,7 @@ class SketchStore:
         self._epoch = 0  # bumped only when slot identity changes (compact)
         self._n_removed_total = 0  # monotone; lets layouts skip mask work
         self._gather_cache: AliveView | None = None
+        self._listeners: list = []  # mutation observers (see `subscribe`)
         self.set_registry(None)
 
     def set_registry(self, registry) -> None:
@@ -121,9 +155,7 @@ class SketchStore:
         self._c_added = reg.counter("store_rows_added_total")
         self._c_removed = reg.counter("store_rows_removed_total")
         self._c_compactions = reg.counter("store_compactions_total")
-        # the reference's fourth counter, which stays 0 until the store
-        # can merge (the merge slice of the port)
-        reg.counter("store_merges_total")
+        self._c_merges = reg.counter("store_merges_total")
 
     # -- introspection ------------------------------------------------------
 
@@ -179,6 +211,16 @@ class SketchStore:
         """Slots of alive rows, in slot (= insertion = id) order."""
         return np.flatnonzero(self._alive[: self._size])
 
+    def route_slots(self, slots: np.ndarray, n_shards: int
+                    ) -> list[np.ndarray]:
+        """Split `slots` by shard: THE row-routing rule is ``id %
+        n_shards`` (deterministic, history-independent and stable across
+        compaction).  Each shard keeps the incoming ascending-id order."""
+        if int(n_shards) == 1:
+            return [slots]
+        shard = self._ids[slots] % int(n_shards)
+        return [slots[shard == s] for s in range(int(n_shards))]
+
     def ids(self) -> np.ndarray:
         """External ids of alive rows, ascending."""
         return self._ids[self.alive_slots()]
@@ -186,6 +228,30 @@ class SketchStore:
     def weights(self) -> np.ndarray:
         """Host sketch Hamming weights of alive rows, in id order."""
         return self._weights[self.alive_slots()]
+
+    def contains(self, id_: int) -> bool:
+        slot = np.searchsorted(self._ids[: self._size], id_)
+        return (slot < self._size and self._ids[slot] == id_
+                and bool(self._alive[slot]))
+
+    # -- mutation observers -------------------------------------------------
+
+    def subscribe(self, callback) -> None:
+        """Register `callback(event, ids, slots)` to run after every
+        mutation commits.  Events: "add" (the appended rows), "remove"
+        (the tombstoned rows), "merge" (another store's alive rows just
+        absorbed), "compact" (empty arrays: slot identity changed).
+        Callbacks run synchronously, in subscription order, and must not
+        mutate the store re-entrantly."""
+        self._listeners.append(callback)
+
+    def unsubscribe(self, callback) -> None:
+        """Remove a `subscribe`d callback (ValueError if absent)."""
+        self._listeners.remove(callback)
+
+    def _notify(self, event: str, ids: np.ndarray, slots: np.ndarray) -> None:
+        for cb in self._listeners:
+            cb(event, ids, slots)
 
     # -- mutation -----------------------------------------------------------
 
@@ -211,6 +277,39 @@ class SketchStore:
         if k == 0:
             return np.zeros(0, np.int64)
         new_ids = np.arange(self._next_id, self._next_id + k, dtype=np.int64)
+        return self._append(packed, k, new_ids, notify=True)
+
+    def add_with_ids(self, packed: torch.Tensor, ids, n_valid: int | None = None,
+                     *, notify: bool = False) -> np.ndarray:
+        """Append packed rows under EXPLICIT external ids (the migration
+        path, which rebuilds a store keeping the original ids).  `ids` must
+        be strictly ascending and above every id already appended.
+        notify=False by default: a migrated row is not new membership."""
+        packed, k = self._check_batch(packed, n_valid)
+        ids = np.atleast_1d(np.asarray(ids, np.int64))
+        if len(ids) != k:
+            raise ValueError(f"{len(ids)} ids for {k} valid rows")
+        if k == 0:
+            return np.zeros(0, np.int64)
+        floor = self._ids[self._size - 1] if self._size else -1
+        if ids[0] <= floor or (k > 1 and (np.diff(ids) <= 0).any()):
+            raise ValueError(
+                "add_with_ids requires strictly ascending ids above the "
+                f"store's last id ({floor}); got head {ids[:4]}")
+        return self._append(packed, k, ids, notify=notify)
+
+    def add_packed(self, packed: torch.Tensor, spec: SketchSpec | None,
+                   n_valid: int | None = None) -> np.ndarray:
+        """Spec-checked `add`: a `spec` that differs from the store's raises
+        MergeIncompatible naming both, before any device work (wrong hash
+        seeds never fail otherwise).  `spec=None` checks only the width."""
+        if spec is not None:
+            check_spec_compatible(spec, self.spec,
+                                  what="SketchStore.add_packed")
+        return self.add(packed, n_valid=n_valid)
+
+    def _append(self, packed: torch.Tensor, k: int, new_ids: np.ndarray,
+                *, notify: bool) -> np.ndarray:
         # capacity follows the JAX store, which writes a pow2-padded batch
         kpad = pow2_bucket(k)
         if self._size + kpad > self.capacity:
@@ -224,37 +323,36 @@ class SketchStore:
         self._weights[sl] = weights.cpu().numpy()
         self._size += k
         self._n_alive += k
-        self._next_id = int(new_ids[-1]) + 1
+        self._next_id = max(self._next_id, int(new_ids[-1]) + 1)
         self._c_added.inc(k)
         self._bump()
+        if notify:
+            self._notify("add", new_ids,
+                         np.arange(self._size - k, self._size,
+                                   dtype=np.int64))
         return new_ids
-
-    def add_packed(self, packed: torch.Tensor, spec: SketchSpec | None,
-                   n_valid: int | None = None) -> np.ndarray:
-        """Spec-checked `add`: a `spec` that differs from the store's raises
-        ValueError naming both, before any device work (wrong hash seeds
-        never fail otherwise).  `spec=None` checks only the width."""
-        if spec is not None and spec != self.spec:
-            raise ValueError(f"SketchStore.add_packed: rows sketched under "
-                             f"{spec} do not match the store's {self.spec}")
-        return self.add(packed, n_valid=n_valid)
 
     def _check_batch(self, packed, n_valid) -> tuple[torch.Tensor, int]:
         packed = torch.as_tensor(packed)
+        if packed.ndim != 2 or packed.shape[1] != self.w:
+            whose = "" if self.spec is None else \
+                f" (store spec: d={self.spec.d}, v{self.spec.version})"
+            raise ValueError(f"expected (k, {self.w}) packed rows, got "
+                             f"{tuple(packed.shape)}{whose}")
         if packed.dtype != torch.int32:
             raise TypeError(f"expected int32 packed rows, got {packed.dtype}")
-        if packed.ndim != 2 or packed.shape[1] != self.w:
-            raise ValueError(f"expected (k, {self.w}) packed rows, got "
-                             f"{tuple(packed.shape)}")
         k = packed.shape[0] if n_valid is None else int(n_valid)
         if not 0 <= k <= packed.shape[0]:
             raise ValueError(
                 f"n_valid={k} outside the {packed.shape[0]} supplied rows")
         return packed, k
 
-    def remove(self, ids) -> int:
+    def remove(self, ids, *, notify: bool = True) -> int:
         """Tombstone rows by id (device buffers untouched).  Raises KeyError
-        on unknown or already-removed ids.  Returns the number removed."""
+        on unknown or already-removed ids.  Returns the number removed.
+        notify=False is the quiet tombstone of a row that moved to the
+        new-spec store of a migration: no "remove" event, but the version
+        and removed_count bump so layouts resync."""
         ids = np.atleast_1d(np.asarray(ids, np.int64))
         if len(np.unique(ids)) != len(ids):
             raise ValueError("duplicate ids in remove batch")
@@ -268,6 +366,8 @@ class SketchStore:
         self._n_removed_total += len(ids)
         self._c_removed.inc(len(ids))
         self._bump()
+        if notify:
+            self._notify("remove", ids, slots.astype(np.int64))
         return len(ids)
 
     def compact(self) -> None:
@@ -295,6 +395,99 @@ class SketchStore:
         self._n_alive = n
         self._epoch += 1  # slots renumbered: layouts must rebuild, not sync
         self._bump()
+        self._notify("compact", np.zeros(0, np.int64), np.zeros(0, np.int64))
+
+    # -- merge (the Mergeable contract, repro_torch.index.mergeable) --------
+
+    def merge(self, other: "SketchStore") -> "SketchStore":
+        """Absorb `other`'s slots (alive AND tombstoned) into this store
+        and return self.  Inputs must share a spec and cover disjoint
+        external ids; validation runs before any mutation, so a refused
+        merge, or one killed at the ``merge.combine`` crash point, leaves
+        both stores intact and re-runnable.  `other` is never mutated but
+        must be discarded after success.
+
+        Two paths, both keeping slot order == id order:
+
+          * append (other's smallest id above self's largest): other's
+            used slots become this store's tail, weighed by the row
+            popcount, with NO epoch bump, so a PartitionSet absorbs them
+            as ordinary shard-routed delta slots;
+          * interleave: the merged order is the sorted-id merge of the two
+            slot sequences, one gather of the concatenated rows; slot
+            identity changes, so the epoch bumps and layouts rebuild.
+
+        Other's tombstones stay dead here and advance `removed_count`.
+        Row counters do not move (the engine merges the registries);
+        `store_merges_total` counts the combines."""
+        if other is self:
+            raise MergeIncompatible(
+                "SketchStore.merge: cannot merge a store with itself")
+        if self.spec is not None or other.spec is not None:
+            check_spec_compatible(other.spec, self.spec,
+                                  what="SketchStore.merge")
+        if other.d != self.d:
+            raise MergeIncompatible(
+                f"SketchStore.merge: sketch dim mismatch "
+                f"(d={self.d} vs d={other.d})")
+        if other._size == 0:
+            # empty input: a validated no-op (no version bump)
+            self._next_id = max(self._next_id, other._next_id)
+            return self
+        check_id_disjoint(self._ids[: self._size], other._ids[: other._size],
+                          what="SketchStore.merge")
+        with obs.span("store.merge", rows=other._size, alive=len(other)):
+            self._merge(other)
+        return self
+
+    def _merge(self, other: "SketchStore") -> None:
+        faultinject.crash_point(_CP_MERGE)
+        size_a, size_b = self._size, other._size
+        o_ids = other._ids[:size_b]
+        o_alive = other._alive[:size_b]
+        alive_ids = o_ids[o_alive]
+        o_rows = other._sk_buf[:size_b].to(self.device)
+        if size_a == 0 or o_ids[0] > self._ids[size_a - 1]:
+            kpad = pow2_bucket(size_b)
+            if size_a + kpad > self.capacity:
+                self._grow_to(pow2_bucket(size_a + kpad))
+            sl = slice(size_a, size_a + size_b)
+            self._sk_buf[sl] = o_rows
+            self._ids[sl] = o_ids
+            self._alive[sl] = o_alive
+            self._weights[sl] = packing.popcount_rows(o_rows).cpu().numpy()
+            self._size += size_b
+            merged_slots = np.arange(size_a, size_a + size_b,
+                                     dtype=np.int64)[o_alive]
+        else:
+            ids_cat = np.concatenate([self._ids[:size_a], o_ids])
+            order = np.argsort(ids_cat, kind="stable")
+            n = size_a + size_b
+            cap = pow2_bucket(n)
+            self._sk_buf = packing.padded_take(
+                torch.cat([self._sk_buf[:size_a], o_rows]), order)
+            ids = np.zeros(cap, np.int64)
+            ids[:n] = ids_cat[order]
+            alive_cat = np.concatenate([self._alive[:size_a], o_alive])
+            alive = np.zeros(cap, bool)
+            alive[:n] = alive_cat[order]
+            w_cat = np.concatenate([self._weights[:size_a],
+                                    other._weights[:size_b]])
+            weights = np.zeros(cap, np.int64)
+            weights[:n] = w_cat[order]
+            self._ids, self._alive, self._weights = ids, alive, weights
+            self._size = n
+            self._epoch += 1  # slots renumbered: layouts rebuild, not sync
+            merged_slots = np.flatnonzero(
+                (order >= size_a) & alive_cat[order]).astype(np.int64)
+        self._n_alive += len(alive_ids)
+        # imported tombstones: dead on arrival, but they advance the
+        # monotone removed counter so layout syncs refresh alive masks
+        self._n_removed_total += size_b - len(alive_ids)
+        self._next_id = max(self._next_id, other._next_id)
+        self._c_merges.inc()
+        self._bump()
+        self._notify("merge", alive_ids.copy(), merged_slots)
 
     # -- query-side views ---------------------------------------------------
 
@@ -332,29 +525,66 @@ class SketchStore:
         """A store holding exactly these slots (tombstones included):
         packed (size, w) int32, ids (size,) strictly ascending int64,
         alive (size,) bool.  Weights are recomputed on the device."""
-        store = cls(d, spec=spec, device=device)
+        device = resolve_device(device)
         packed = np.array(packed, np.int32)  # a writable copy for torch
         ids = np.asarray(ids, np.int64)
         alive = np.asarray(alive, bool)
-        size = len(ids)
-        if packed.shape != (size, store.w) or alive.shape != (size,):
+        size, w = len(ids), packing.packed_width(int(d))
+        if packed.shape != (size, w) or alive.shape != (size,):
             raise ValueError(
-                f"expected ({size}, {store.w}) packed rows and {size} alive "
+                f"expected ({size}, {w}) packed rows and {size} alive "
                 f"flags, got {packed.shape} and {alive.shape}")
         if size > 1 and (np.diff(ids) <= 0).any():
             raise ValueError("ids must be strictly ascending")
+        rows = torch.from_numpy(packed).to(device)
+        weights = (packing.popcount_rows(rows) if size
+                   else np.zeros(0, np.int64))
+        return cls.from_state(
+            {"sk": rows, "ids": ids, "alive": alive, "weights": weights},
+            {"d": d, "size": size, "next_id": int(ids[-1]) + 1 if size else 0},
+            spec=spec, device=device)
+
+    # -- snapshot / restore -------------------------------------------------
+
+    def state_tree(self) -> dict[str, np.ndarray]:
+        """Flat tree for the Checkpointer: exactly the used slots
+        (tombstones included), as the JAX store's: sk int32, ids int64,
+        alive bool, weights int64."""
+        return {
+            "sk": self._sk_buf[: self._size].cpu().numpy(),
+            "ids": self._ids[: self._size].copy(),
+            "alive": self._alive[: self._size].copy(),
+            "weights": self._weights[: self._size].copy(),
+        }
+
+    def state_meta(self) -> dict:
+        return {"d": self.d, "size": self._size, "next_id": self._next_id}
+
+    @classmethod
+    def from_state(cls, tree: dict, meta: dict,
+                   spec: SketchSpec | None = None,
+                   device="cuda") -> "SketchStore":
+        """The store a `state_tree` / `state_meta` pair describes (either
+        package's), its sketches placed on `device`."""
+        store = cls(int(meta["d"]), spec=spec, device=device)
+        size = int(meta["size"])
         cap = pow2_bucket(size)
-        store._grow_to(cap)
-        if size:
-            rows = torch.from_numpy(packed).to(store.device)
-            weights = packing.popcount_rows(rows)
-            store._sk_buf[:size] = rows
-            store._weights[:size] = weights.cpu().numpy()
-            store._ids[:size] = ids
-            store._alive[:size] = alive
-            store._next_id = int(ids[-1]) + 1
+        sk = on_device(tree["sk"], store.device).to(torch.int32)
+        if tuple(sk.shape) != (size, store.w):
+            raise ValueError(f"snapshot sketches {tuple(sk.shape)} do not "
+                             f"hold {size} rows of {store.w} words")
+        store._sk_buf = torch.zeros((cap, store.w), dtype=torch.int32,
+                                    device=store.device)
+        store._sk_buf[:size] = sk
+        store._ids = np.zeros(cap, np.int64)
+        store._ids[:size] = to_host(tree["ids"])
+        store._alive = np.zeros(cap, bool)
+        store._alive[:size] = to_host(tree["alive"])
+        store._weights = np.zeros(cap, np.int64)
+        store._weights[:size] = to_host(tree["weights"])
         store._size = size
-        store._n_alive = int(alive.sum())
+        store._n_alive = int(store._alive.sum())
         store._n_removed_total = size - store._n_alive
+        store._next_id = int(meta["next_id"])
         store._bump()
         return store

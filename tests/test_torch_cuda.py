@@ -488,3 +488,99 @@ def test_front_door_on_cuda_equals_the_engine(dev, metric):
                                                               dists)
     for a, b in zip(near.hits, engine.radius(qs[1], r)):
         assert np.array_equal(a, b)
+
+
+# the widths a PubMed index migrates to under drift: theory.sketch_dim of
+# a p95 density of 247 or 248 is 5,555 or 5,588 bits, W = 174 or 175 words
+# (neither a multiple of 4)
+MIGRATED_D = (5555, 5588)
+
+
+@pytest.mark.parametrize("d", MIGRATED_D)
+@pytest.mark.parametrize("rows", [1, 63, 64, 65, 257, 16384])
+def test_kernels_at_the_migrated_width(dev, rows, d):
+    """B1-B4 at W = 174 and 175 against their plain versions, at row
+    counts on either side of each kernel's tiles."""
+    w = (d + 31) // 32
+    rng = np.random.default_rng(rows)
+    i, v = _coo_rows(rng, rows, 298, dev)
+    kw = dict(d=d, psi_seed=0x7FFFFFFF, pi_seed=12345)
+    assert torch.equal(sparse_ops.cabin_build_sparse(i, v, **kw),
+                       sparse_ops.cabin_build_sparse_ref(i, v, **kw))
+    b = _words(rng, rows, w, dev)
+    assert torch.equal(hamming_ops.row_popcount(b),
+                       hamming_ops.row_popcount_ref(b))
+    for nq in (1, 64, 65):
+        q = _words(rng, nq, w, dev)
+        for g, r in zip(hamming_ops.pair_stats(q, b),
+                        hamming_ops.pair_stats_ref(q, b)):
+            assert torch.equal(g, r), nq
+        for metric in ("cham", "hamming"):
+            for k in (1, 10, min(rows + 3, 300)):
+                gv, gi = topk_ops.topk_select(q, b, k, d=d, metric=metric)
+                wv, wi = topk_ops.topk_select_ref(q, b, k, d=d,
+                                                  metric=metric)
+                assert torch.equal(gi, wi) and torch.equal(gv, wv), (
+                    nq, metric, k)
+
+
+@pytest.mark.parametrize("metric", ["cham", "hamming"])
+def test_lifecycle_on_cuda_equals_the_cpu(dev, metric, tmp_path):
+    """Merge, shard, a journaled migration with a mid-migration query, and
+    snapshots saved on one device and restored on the other: the engine on
+    the card answers as the same history on the CPU, bit for bit."""
+    rng = np.random.default_rng(2)
+    params = CabinParams.create(5000, 256, seed=3)
+
+    def coo(n):
+        idx = rng.integers(0, 5000, size=(n, 40)).astype(np.int32)
+        val = rng.integers(0, 6, size=(n, 40)).astype(np.int32)
+        return idx, val
+
+    parts = [coo(700), coo(500)]
+    queries, late = coo(9), coo(64)
+    runs = {}
+    for d in ("cpu", dev):
+        a = QueryEngine(params, metric=metric, band_rows=64, device=d)
+        b = QueryEngine(params, metric=metric, band_rows=64, device=d)
+        b.store._next_id = 700
+        a.add_sparse(*parts[0])
+        b.add_sparse(*parts[1])
+        a.merge(b)
+        a.shard(n_shards=3)
+        a.remove(np.arange(0, 1200, 13))
+        before = a.topk(queries, 7)
+        a.migrate(d=5588, batch_rows=256, drive="manual",
+                  journal_dir=str(tmp_path / f"journal-{torch.device(d).type}"),
+                  journal_every=1)
+        a.migration_step()
+        a.add_sparse(*late)
+        a.migration_step()
+        mid = a.topk(queries, 7)
+        r = float(np.median(mid[1][:, -1]))
+        near = a.radius(queries, r)
+        runs[torch.device(d).type] = (a, before, mid, near, r)
+    (c, *cpu), (g, *gpu) = runs["cpu"], runs["cuda"]
+    for x, y in zip(cpu[:2], gpu[:2]):
+        assert np.array_equal(x[0], y[0]) and np.array_equal(x[1], y[1])
+    for x, y in zip(cpu[2], g.radius(queries, cpu[3])):
+        assert np.array_equal(x, y)
+    # the CUDA journal restored on the CPU and the CPU's on the card
+    for src, dst_dev, twin in (("cuda", "cpu", c), ("cpu", dev, g)):
+        res = QueryEngine.restore(str(tmp_path / f"journal-{src}"),
+                                  device=dst_dev, band_rows=64)
+        assert res.migrating and res.store.device.type == torch.device(
+            dst_dev).type
+        for x, y in zip(res.topk(queries, 7), twin.topk(queries, 7)):
+            assert np.array_equal(x, y)
+    for e in (c, g):
+        e.migrate_all()
+    assert torch.equal(c.store.sk_buf[:c.store.size].cpu(),
+                       g.store.sk_buf[:g.store.size].cpu())
+    for x, y in zip(c.topk(queries, 7), g.topk(queries, 7)):
+        assert np.array_equal(x, y)
+    g.save(str(tmp_path / "snap"))
+    res = QueryEngine.restore(str(tmp_path / "snap"), device="cpu",
+                              band_rows=64)
+    for x, y in zip(res.topk(queries, 7), c.topk(queries, 7)):
+        assert np.array_equal(x, y)

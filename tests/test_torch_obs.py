@@ -46,13 +46,9 @@ SRC = str(Path(__file__).resolve().parents[1] / "src")
 N_DIMS = 300
 P = CabinParams(n_dims=N_DIMS, sketch_dim=64, psi_seed=21, pi_seed=22)
 
-# the reference's gauges whose state the port has no counterpart of yet:
-# the jit compile cache (the port has none), the density-drift window and
-# a migration in flight (ROADMAP queue A, A5 and A9)
-DEFERRED_GAUGES = {
-    "engine_compile_cache_entries", "engine_observed_density_pct",
-    "engine_density_dim_needed", "engine_migration_progress",
-    "engine_migration_cursor"}
+# the reference's gauge whose state the port has no counterpart of: the
+# jit compile cache (the port has none)
+DEFERRED_GAUGES = {"engine_compile_cache_entries"}
 
 
 def _rows(n, seed):
@@ -363,13 +359,18 @@ def test_trace_is_loadable_and_covers_the_serving_ops(tmp_path, obs_restore,
 
 
 def test_declared_points_of_the_port():
+    import repro_torch.checkpoint  # noqa: F401  (declares the save path's)
     import repro_torch.serve  # noqa: F401  (declares the front door's)
 
     assert set(faultinject.registered_points()) == {
         "store.compact", "frontdoor.enqueue", "frontdoor.flush",
-        "frontdoor.publish"}
+        "frontdoor.publish", "merge.combine", "shard.rebalance",
+        "checkpointer.save.tmp_written", "checkpointer.save.arrays_written",
+        "checkpointer.save.meta_written", "checkpointer.save.published",
+        "migrate.start", "migrate.batch.resketched",
+        "migrate.batch.committed", "migrate.fold", "migrate.published"}
     with pytest.raises(ValueError, match="unknown crash point"):
-        faultinject.arm("merge.combine")
+        faultinject.arm("heartbeat.tmp_written")
     with pytest.raises(ValueError, match="mode"):
         faultinject.arm("store.compact", mode="later")
 
