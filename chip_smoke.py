@@ -57,7 +57,32 @@ Phases, each fatal on failure (exit code other than 0, no result line):
               the record: queries/s through the door, and of 5 direct topk
               calls on fresh batches with obs.configure(True) and 5 with
               (False), in turns.
- 6. lifecycle - the cham engine's configuration (PubMed at full width,
+ 6. cluster - k-medoid clustering attached to the main phase's cham engine
+              (PubMed at full width, d = 4096, about 519,000 rows alive),
+              with the launch counts set to 0 just before and B2-B4 risen
+              just after: engine.cluster(16, seed) (k = 16 as the
+              reference's bench_cluster; kmode's default n_iter 15; the
+              full-batch refit runs at attach).  The refit labels must
+              equal a one-shot brute-force assignment against the medoids
+              over the plain versions on the card (first minimum), and
+              counts and weights the bincounts; 16,384 fresh rows through
+              add_sparse must be labelled as brute force labels them, and
+              16,384 more through assign_packed; after removing 1% the
+              counts follow; save then restore of the engine and the index
+              give equal state, and a refit (n_iter 1) of each identical
+              medoids and labels.  On a 16,384-row sample, kmode_packed
+              (full batch, n_iter 4) on the card must equal the same run
+              on CPU tensors through the plain versions, bit for bit; mini-batch
+              (slices of 4,096 rows, n_iter 2) over 65,536 rows must give
+              the same result twice, labels an assignment against its
+              centres.  render_prom must hold engine_query_latency_ms
+              {op="assign"} and cluster_refits_total, the trace the
+              cluster.refit and cluster.assign spans.  The index detaches
+              at the end.  For the record: refit seconds and labels/s
+              (rows x n_iter / wall, as benchmarks/bench_cluster.py
+              counts), rows/s of add_sparse with assignment and of
+              assign_packed alone, mini-batch labels/s.
+ 7. lifecycle - the cham engine's configuration (PubMed at full width,
               d = 4096) through the index's lifecycle on the card, with
               the launch counts set to 0 just before and B1-B4 risen just
               after.  Merge: engine A ingests rows [0, 262,144), engine B
@@ -88,7 +113,30 @@ Phases, each fatal on failure (exit code other than 0, no result line):
               MB, and topk
               queries/s unsharded (the restored engine) against 4 shards
               (A), 5 fresh batches each, in turns.
- 7. lm      - llama3-8B at full width and depth (32 layers, d_model 4096,
+ 8. corpus  - 16,384 token documents from the port's synthetic_documents at
+              llama3-8B's vocabulary (128,256), mean length 512,
+              dup_fraction 0.1, made on the host from --seed (about 1.2 ms
+              a document, the generator's own cost: the phase's cut), with
+              the launch counts set to 0 just before each step and B1-B4
+              risen over the phase.  The engines' d is
+              theory.sketch_dim(p95 of the documents' distinct tokens)
+              (13,161 for p95 439: W = 412).  Under each metric,
+              bulk_ingest over 4 shards (4 worker threads, windows of 512,
+              no dedup) must equal the sequential ingest_documents bit for
+              bit: ids, packed rows, weights and the raw archive, and its
+              launches be counted exactly (one B1 and one B4 a window, one
+              B4 a store merge); the cham bulk load again with one worker.  ingest_documents with dedup_threshold
+              40.0 on the card must keep the same documents, under the
+              same ids, as on a device="cpu" engine.  dedup_by_sketch over
+              all 16,384 sketches (banded) must return the DedupResult of
+              the tiled scan, of dedup_by_sketch_blocked and of a brute-
+              force scan of the plain versions on the card.  16 batches of
+              BatchPipeline(vocab 128,256, seq_len 2,048, global_batch 8,
+              dedup on) on the card must equal those of device="cpu", and
+              topk (k = 10) of 256 kept documents brute force.  For the
+              record: documents/s sequential and bulk, dedup seconds,
+              pipeline batches/s.
+ 9. lm      - llama3-8B at full width and depth (32 layers, d_model 4096,
               32 heads / 8 KV heads, vocab 128,256, bf16), weights drawn on
               the card from --seed (16 GB).  ServeEngine.generate answers 4
               requests of 1,024 random prompt tokens, caches of 2,048
@@ -115,7 +163,7 @@ Phases, each fatal on failure (exit code other than 0, no result line):
               faulty layers, the end-to-end rule must reject the fault in
               every layer, and its readings under each fault are printed
               beside the sound ones.
- 8. kernels - each kernel against its plain version on the card, at the
+10. kernels - each kernel against its plain version on the card, at the
               shapes the main path gave it: B1-B5 bit for bit (B2 also at
               the kept band-walk chunks; B5 also against the sparse plain
               version of the same rows), B6 on the prefill's first
@@ -158,19 +206,25 @@ Phases, each fatal on failure (exit code other than 0, no result line):
               bit and timed with their bounds (each kernel's entry
               "migrated_width"): B1 on a 16,384-row chunk, B2 for 256
               queries over the migrated store at k = 10, B3 for 64 queries
-              x 65,536 rows, B4 over the migrated store.
- 9. output  - one JSON line of the lifecycle phase's records, the
-              nvidia-smi line, one JSON line listing the kernels (with the
-              main path's launches, the frontdoor phase's and the
-              lifecycle phase's), and last the line {"ok": true,
-              "device": {...}}.
+              x 65,536 rows, B4 over the migrated store.  And at the
+              corpus phase's width (entry "corpus_width"): B1 on one
+              512-document window, B2 for the 256 kept documents over the
+              bulk engine at k = 10, B3 on the corpus dedup's widest
+              banded strip, B4 over the corpus.
+11. output  - one JSON line of the lifecycle, cluster and corpus phases'
+              records, the nvidia-smi line, one JSON line listing the
+              kernels (with the launches of the main path, the frontdoor,
+              lifecycle, cluster and corpus phases), and last the line
+              {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import itertools
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -184,12 +238,20 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import obs  # noqa: E402
+from repro_torch.cluster import ClusterIndex  # noqa: E402
 from repro_torch.configs.base import ParallelConfig  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
-from repro_torch.core import hashing, packing, theory  # noqa: E402
+from repro_torch.core import allpairs, hashing, packing, theory  # noqa: E402
 from repro_torch.core.cabin import CabinParams  # noqa: E402
 from repro_torch.core.cham import cham_from_table, cham_table  # noqa: E402
-from repro_torch.index import QueryEngine  # noqa: E402
+from repro_torch.core.kmode import kmode_packed  # noqa: E402
+from repro_torch.data import dedup as dedup_mod  # noqa: E402
+from repro_torch.data.dedup import (dedup_by_sketch,  # noqa: E402
+                                    dedup_by_sketch_blocked)
+from repro_torch.data.pipeline import (BatchPipeline,  # noqa: E402
+                                       PipelineConfig, synthetic_documents)
+from repro_torch.index import (QueryEngine, bulk_ingest,  # noqa: E402
+                               ingest_documents)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.cabin_build import ops as dense_ops  # noqa: E402
 from repro_torch.kernels.cabin_build_sparse import (  # noqa: E402
@@ -231,6 +293,22 @@ FD_TIMED_CALLS = 5
 # the lifecycle phase: shards of the merged engine, and migration batches
 # between two journal steps
 LC_SHARDS, LC_JOURNAL_EVERY = 4, 8
+# the cluster phase: k and n_iter of the attached index (the reference's
+# bench_cluster k and kmode's default n_iter), fresh rows assigned, the
+# n_iter of the refits after save / restore, the sample held card against
+# CPU (rows, n_iter: the CPU run's cost), and the mini-batch runs' rows,
+# n_iter and slice
+CL_K, CL_ITERS, CL_FRESH, CL_REFIT_ITERS = 16, 15, 16384, 1
+CL_SAMPLE, CL_SAMPLE_ITERS = 16384, 4
+CL_MB_ROWS, CL_MB_ITERS, CL_BATCH_ROWS = 65536, 2, 4096
+# the corpus phase: documents at llama3-8B's vocabulary, their mean length
+# and near-duplicate share, bulk ingest shards (and workers), the ingest
+# window, the dedup threshold (the reference's ingest test's), topk
+# queries; the batch pipeline's sequence length, global batch and batches
+CORPUS_VOCAB, CORPUS_DOCS, CORPUS_MEAN_LEN, CORPUS_DUP = 128256, 16384, 512, 0.1
+CORPUS_SHARDS, CORPUS_WINDOW, CORPUS_THRESHOLD = 4, 512, 40.0
+CORPUS_QUERIES = 256
+PIPE_SEQ, PIPE_BATCH, PIPE_BATCHES = 2048, 8, 16
 
 # the LM phase: llama3-8B at full width and depth, 4 requests of 1,024
 # prompt tokens, caches of 2,048 positions, 32 greedy new tokens
@@ -797,6 +875,223 @@ def frontdoor_phase(run: dict, gen: torch.Generator, calls: dict,
 
 
 # ---------------------------------------------------------------------------
+# clustering over the live index
+# ---------------------------------------------------------------------------
+
+
+def first_argmin(dist: torch.Tensor) -> np.ndarray:
+    """Per-row index of the first minimum of a (rows, k) distance matrix,
+    as np.argmin gives it."""
+    tmin = dist.amin(dim=1, keepdim=True)
+    col = torch.arange(dist.shape[1], device=dist.device)
+    return torch.where(dist == tmin, col, dist.shape[1]).amin(
+        dim=1).cpu().numpy().astype(np.int64)
+
+
+def brute_assign(rows: torch.Tensor, centers: torch.Tensor, metric: str,
+                 d: int = SKETCH_DIM) -> np.ndarray:
+    """Nearest centre of each row by the plain versions, first minimum."""
+    return first_argmin(plain_dist(rows, centers, metric, d))
+
+
+def same_cluster_state(a, b) -> bool:
+    """Two ClusterIndex objects hold the same labels, counts, weights,
+    centres and medoids."""
+    return (all(np.array_equal(x, y) for x, y in zip(a.labels(), b.labels()))
+            and np.array_equal(a.counts, b.counts)
+            and np.array_equal(a.weights, b.weights)
+            and np.array_equal(a.centers, b.centers)
+            and np.array_equal(a.medoid_ids, b.medoid_ids))
+
+
+def cluster_phase(run: dict, gen: torch.Generator, rng: np.random.Generator,
+                  seed: int, card: str) -> dict:
+    """k-medoid clustering attached to the main path's cham engine, as its
+    users run it: attach (the full-batch refit), incremental assignment of
+    fresh rows, removes, save / restore and refits, held against brute
+    force over the plain versions; the k-medoid engine on a sample, on the
+    card and on CPU tensors; mini-batch twice.  Returns the phase's launch
+    counts and records."""
+    metric, engine = "cham", run["engine"]
+    device = run["alive"].device
+    params = engine.params
+    sk_kw = dict(d=SKETCH_DIM, psi_seed=params.psi_seed,
+                 pi_seed=params.pi_seed)
+    was = obs.enabled()
+    obs.configure(True)
+    obs.clear_trace()
+    phase_t0 = time.perf_counter()
+    rec: dict = {"k": CL_K, "n_iter": CL_ITERS}
+    build.reset_launches()
+
+    # -- attach: the full-batch refit over the alive rows --------------------
+    n0 = len(engine)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ci = engine.cluster(CL_K, seed=seed, n_iter=CL_ITERS)
+    torch.cuda.synchronize()
+    rec["refit_s"] = time.perf_counter() - t0
+    rec["rows"] = n0
+    rec["labels_per_s"] = n0 * CL_ITERS / rec["refit_s"]
+    mat, n_alive, alive_ids = engine.store.gather_alive()
+    alive = mat[:n_alive].contiguous()
+    lab_ids, lab = ci.labels()
+    centers = torch.from_numpy(ci.centers).to(device)
+    check(ci.fitted and np.array_equal(lab_ids, alive_ids),
+          "the attached index does not label the alive rows")
+    pos = np.searchsorted(alive_ids, ci.medoid_ids)
+    check(torch.equal(alive[torch.from_numpy(pos).to(device)], centers),
+          "the centres are not the medoids' rows")
+    check(np.array_equal(lab, brute_assign(alive, centers, metric)),
+          "refit labels differ from a one-shot brute-force assignment "
+          "against the medoids")
+    weights = engine.store.weights()
+    check(np.array_equal(ci.counts, np.bincount(lab, minlength=CL_K))
+          and np.array_equal(ci.weights, np.bincount(
+              lab, weights=weights, minlength=CL_K).astype(np.int64)),
+          "counts / weights differ from the bincounts of the labels")
+    rec["counts"] = ci.counts.tolist()
+
+    # -- incremental assignment: fresh rows through the engine ---------------
+    f_idx, f_val = pubmed_rows(CL_FRESH, gen, device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new_ids, new_lab = ci.add_sparse(f_idx, f_val)
+    torch.cuda.synchronize()
+    rec["add_sparse_rows_per_s"] = CL_FRESH / (time.perf_counter() - t0)
+    f_sk = sparse_ops.cabin_build_sparse_ref(f_idx, f_val, **sk_kw)
+    check(np.array_equal(new_lab, brute_assign(f_sk, centers, metric)),
+          "incremental labels differ from brute force")
+    check(np.array_equal(ci.counts, np.bincount(ci.labels()[1],
+                                                minlength=CL_K)),
+          "counts after the incremental adds differ from the bincount")
+    # the assignment path alone, on other fresh rows (not in any cache)
+    a_idx, a_val = pubmed_rows(CL_FRESH, gen, device)
+    a_sk = sparse_ops.cabin_build_sparse(a_idx, a_val, **sk_kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a_lab = ci.assign_packed(a_sk)
+    rec["assign_rows_per_s"] = CL_FRESH / (time.perf_counter() - t0)
+    check(np.array_equal(a_lab, brute_assign(a_sk, centers, metric)),
+          "assign_packed differs from brute force")
+
+    # -- remove 1%: the counts follow ----------------------------------------
+    kill = rng.choice(engine.ids(), len(engine) // 100, replace=False)
+    before = ci.counts
+    gone = np.bincount(ci.label_of(kill), minlength=CL_K)
+    engine.remove(kill)
+    check(np.array_equal(ci.counts, before - gone)
+          and np.array_equal(ci.counts, np.bincount(ci.labels()[1],
+                                                    minlength=CL_K))
+          and ci.counts.sum() == len(engine),
+          "counts after removing 1% do not follow")
+
+    # -- save / restore, then a refit of each --------------------------------
+    with tempfile.TemporaryDirectory() as snap:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ci.save(snap)
+        rec["save_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = ClusterIndex.restore(snap, device=device)
+        torch.cuda.synchronize()
+        rec["restore_s"] = time.perf_counter() - t0
+    check(same_cluster_state(back, ci)
+          and np.array_equal(back.engine.ids(), engine.ids())
+          and back.mutations_since_refit == ci.mutations_since_refit,
+          "the restored cluster index holds another state")
+    mat_b, nb, _ = back.engine.store.gather_alive()
+    mat_a, na, _ = engine.store.gather_alive()
+    check(na == nb and torch.equal(mat_a[:na], mat_b[:nb]),
+          "the restored engine holds other rows")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ci.refit(n_iter=CL_REFIT_ITERS)
+    torch.cuda.synchronize()
+    rec["second_refit_s"] = time.perf_counter() - t0
+    back.refit(n_iter=CL_REFIT_ITERS)
+    check(same_cluster_state(back, ci),
+          "a refit of the restored index differs from the original's")
+    back.detach()
+    del back
+
+    # -- the k-medoid engine on a sample: card against CPU tensors -----------
+    mat, n_alive, _ = engine.store.gather_alive()
+    pick = torch.from_numpy(np.sort(rng.choice(
+        n_alive, CL_SAMPLE, replace=False))).to(device)
+    sample = mat.index_select(0, pick).contiguous()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card = kmode_packed(sample, CL_K, d=SKETCH_DIM, n_iter=CL_SAMPLE_ITERS,
+                           seed=seed, metric=metric, device=device)
+    torch.cuda.synchronize()
+    rec["sample_card_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = kmode_packed(sample.cpu(), CL_K, d=SKETCH_DIM,
+                          n_iter=CL_SAMPLE_ITERS, seed=seed, metric=metric,
+                          device="cpu")
+    rec["sample_cpu_s"] = time.perf_counter() - t0
+    check(np.array_equal(on_card.labels, on_cpu.labels)
+          and np.array_equal(on_card.medoids, on_cpu.medoids)
+          and np.array_equal(on_card.centers, on_cpu.centers),
+          "kmode_packed on the card differs from the CPU plain run")
+
+    # -- mini-batch, twice: deterministic ------------------------------------
+    mb_rows = mat[:min(CL_MB_ROWS, n_alive)].contiguous()
+    runs, mb_s = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.append(kmode_packed(mb_rows, CL_K, d=SKETCH_DIM,
+                                 n_iter=CL_MB_ITERS, seed=seed, metric=metric,
+                                 batch_rows=CL_BATCH_ROWS, device=device))
+        torch.cuda.synchronize()
+        mb_s.append(time.perf_counter() - t0)
+    check(np.array_equal(runs[0].labels, runs[1].labels)
+          and np.array_equal(runs[0].centers, runs[1].centers),
+          "mini-batch kmode_packed is not deterministic")
+    check(np.array_equal(runs[0].labels, brute_assign(
+        mb_rows, torch.from_numpy(runs[0].centers).to(device), metric)),
+          "mini-batch labels are not an assignment against its centres")
+    rec["minibatch"] = {"rows": mb_rows.shape[0], "n_iter": CL_MB_ITERS,
+                        "batch_rows": CL_BATCH_ROWS, "s": mb_s,
+                        "labels_per_s": [mb_rows.shape[0] * CL_MB_ITERS / s
+                                         for s in mb_s]}
+    launches = dict(build.LAUNCHES)
+    for kernel in ("topk_select", "pair_stats", "row_popcount"):
+        check(launches[kernel] > 0,
+              f"kernel {kernel} was not launched in the cluster phase")
+
+    # -- its instruments keep the reference's names --------------------------
+    prom = engine.render_prom()
+    check(prom_counts(prom, "engine_query_latency_ms").get("assign", 0) >= 2
+          and re.search(rf"^cluster_refits_total {ci.n_refits}$", prom,
+                        re.M) is not None,
+          "the cluster instruments are missing from render_prom")
+    names = {e["name"] for e in obs.trace_events()}
+    check({"cluster.refit", "cluster.assign"} <= names,
+          f"cluster spans missing from the trace: {sorted(names)}")
+    ci.detach()
+    obs.configure(was)
+    rec["phase_s"] = time.perf_counter() - phase_t0
+    log(f"[cluster] {rec['phase_s']:.1f}s in all; k={CL_K} over {n0} rows: attach (full-batch refit, "
+        f"n_iter {CL_ITERS}) {rec['refit_s']:.3f}s ({rec['labels_per_s']:.1f}"
+        f" labels/s), counts {rec['counts']}; {CL_FRESH} fresh rows "
+        f"through add_sparse {rec['add_sparse_rows_per_s']:.1f} rows/s, "
+        f"assign_packed {rec['assign_rows_per_s']:.1f} rows/s, each label "
+        f"equal to brute force; 1% removed, counts follow; save "
+        f"{rec['save_s']:.3f}s, restore {rec['restore_s']:.3f}s, refits "
+        f"(n_iter {CL_REFIT_ITERS}) of both equal ({rec['second_refit_s']:.3f}"
+        f"s); kmode_packed on {CL_SAMPLE} rows (n_iter {CL_SAMPLE_ITERS}): card "
+        f"{rec['sample_card_s']:.3f}s, CPU {rec['sample_cpu_s']:.3f}s, "
+        f"equal; mini-batch ({CL_BATCH_ROWS}-row slices, n_iter "
+        f"{CL_MB_ITERS}) over {mb_rows.shape[0]} rows twice, equal: "
+        f"{rec['minibatch']['labels_per_s']} labels/s; kernel launches "
+        f"{launches} [{card}]")
+    return {"launches": launches, "record": rec}
+
+
+# ---------------------------------------------------------------------------
 # the index's lifecycle: merge, shard, migrate with a journal, save/restore
 # ---------------------------------------------------------------------------
 
@@ -1137,6 +1432,253 @@ def lifecycle_phase(idx: torch.Tensor, val: torch.Tensor,
         f"twin [{card}]")
     return {"launches": launches, "record": rec, "d": d_new, "kw": kw,
             "alive": mat[:n_alive].contiguous(), "q_sk": q_sk}
+
+
+# ---------------------------------------------------------------------------
+# the corpus: documents, bulk ingest, dedup and the batch pipeline
+# ---------------------------------------------------------------------------
+
+
+def store_arrays(engine) -> dict:
+    """The store's and the raw archive's snapshot arrays."""
+    out = {f"store/{k}": v for k, v in engine.store.state_tree().items()}
+    if engine.raw is not None:
+        out.update({f"raw/{k}": v for k, v in engine.raw.state_tree().items()})
+    return out
+
+
+def same_arrays(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a)
+
+
+def same_dedup(a, b) -> bool:
+    return (np.array_equal(a.keep_mask, b.keep_mask)
+            and np.array_equal(a.group_ids, b.group_ids)
+            and a.n_groups == b.n_groups and a.n_removed == b.n_removed)
+
+
+def counted(fn):
+    """fn() with the launch counts set to 0 just before; (result, counts)."""
+    build.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(build.LAUNCHES)
+
+
+def corpus_phase(seed: int, card: str, device) -> dict:
+    """A corpus of token documents at llama3-8B's vocabulary through the
+    port's data path: the sequential and the bulk (merge-tree) ingest,
+    ingest with in-window dedup on the card and on the CPU, corpus dedup
+    four ways, the LM batch pipeline with dedup on the card and on the
+    CPU, and topk over the kept documents, each held against its twin or
+    brute force.  Returns the phase's launch counts, records and the
+    inputs of the corpus-width kernel checks."""
+    rec: dict = {}
+    phase_t0 = t0 = time.perf_counter()
+    docs = list(itertools.islice(synthetic_documents(
+        CORPUS_VOCAB, seed, mean_len=CORPUS_MEAN_LEN,
+        dup_fraction=CORPUS_DUP), CORPUS_DOCS))
+    rec["generate_s"] = time.perf_counter() - t0
+    distinct = np.array([len(np.unique(doc)) for doc in docs])
+    p95 = int(np.ceil(np.percentile(distinct, 95)))
+    d = theory.sketch_dim(p95)
+    w = packing.packed_width(d)
+    params = CabinParams.create(CORPUS_VOCAB, d, seed=seed)
+    rec.update(docs=CORPUS_DOCS, p95_distinct=p95, d=d, w=w,
+               tokens=int(sum(len(doc) for doc in docs)))
+    shards = [list(s) for s in np.array_split(
+        np.arange(CORPUS_DOCS), CORPUS_SHARDS)]
+    shards = [[docs[i] for i in s] for s in shards]
+    n_windows = -(-CORPUS_DOCS // CORPUS_WINDOW)
+    total = dict.fromkeys(build.LAUNCHES, 0)
+
+    def add(counts):
+        for name, n in counts.items():
+            total[name] += n
+
+    # -- bulk ingest over 4 shards against the sequential ingest -------------
+    engines = {}
+    for metric in ("cham", "hamming"):
+        seq = QueryEngine(params, metric=metric, device=device)
+        t0 = time.perf_counter()
+        ids_seq, seq_n = counted(lambda: ingest_documents(
+            seq, docs, window=CORPUS_WINDOW))
+        seq_s = time.perf_counter() - t0
+        par = QueryEngine(params, metric=metric, device=device)
+        t0 = time.perf_counter()
+        ids_par, par_n = counted(lambda: bulk_ingest(
+            par, shards, workers=CORPUS_SHARDS, window=CORPUS_WINDOW))
+        par_s = time.perf_counter() - t0
+        add(seq_n)
+        add(par_n)
+        check(np.array_equal(ids_seq, np.arange(CORPUS_DOCS))
+              and np.array_equal(ids_par, ids_seq),
+              f"{metric}: bulk ingest ids differ from the sequential's")
+        check(same_arrays(store_arrays(par), store_arrays(seq)),
+              f"{metric}: bulk ingest's store or archive differs from the "
+              "sequential build's")
+        # every launch counted: one B1 and one B4 a window either way, and
+        # one B4 a store merge (three in the tree, one into the target)
+        check(seq_n["cabin_build_sparse"] == n_windows
+              == par_n["cabin_build_sparse"]
+              and seq_n["row_popcount"] == n_windows
+              and par_n["row_popcount"] == n_windows + CORPUS_SHARDS,
+              f"{metric}: launch counts sequential {seq_n}, bulk {par_n} "
+              f"for {n_windows} windows")
+        rec[f"{metric}_docs_per_s"] = {"sequential": CORPUS_DOCS / seq_s,
+                                       "bulk": CORPUS_DOCS / par_s}
+        engines[metric] = par
+    # the same bulk load with one worker thread: the cost of the threads
+    one = QueryEngine(params, device=device)
+    t0 = time.perf_counter()
+    ids_one, n = counted(lambda: bulk_ingest(one, shards, workers=1,
+                                             window=CORPUS_WINDOW))
+    rec["cham_docs_per_s"]["bulk_one_worker"] = (
+        CORPUS_DOCS / (time.perf_counter() - t0))
+    add(n)
+    check(np.array_equal(ids_one, np.arange(CORPUS_DOCS))
+          and same_arrays(store_arrays(one), store_arrays(engines["cham"])),
+          "bulk ingest with one worker differs")
+    del one
+
+    # -- ingest with in-window dedup: the card against the CPU ---------------
+    gd = QueryEngine(params, device=device)
+    t0 = time.perf_counter()
+    ids_gd, n = counted(lambda: ingest_documents(
+        gd, docs, window=CORPUS_WINDOW, dedup_threshold=CORPUS_THRESHOLD))
+    rec["dedup_ingest_docs_per_s"] = CORPUS_DOCS / (time.perf_counter() - t0)
+    add(n)
+    cd = QueryEngine(params, device="cpu")
+    t0 = time.perf_counter()
+    ids_cd = ingest_documents(cd, docs, window=CORPUS_WINDOW,
+                              dedup_threshold=CORPUS_THRESHOLD)
+    rec["dedup_ingest_cpu_s"] = time.perf_counter() - t0
+    kept = ids_gd >= 0
+    check(np.array_equal(ids_gd, ids_cd)
+          and same_arrays(store_arrays(gd), store_arrays(cd)),
+          "ingest with dedup on the card differs from the CPU's")
+    rec["dedup_ingest_kept"] = int(kept.sum())
+
+    # -- corpus dedup: banded, tiled, blocked and brute force ----------------
+    sk = engines["cham"].store.gather_alive()[0][:CORPUS_DOCS].contiguous()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    banded, n = counted(lambda: dedup_by_sketch(
+        sk, d, CORPUS_THRESHOLD, device=device))
+    rec["dedup_s"] = time.perf_counter() - t0
+    add(n)
+    weights = hamming_ops.row_popcount_ref(sk).cpu().numpy()
+    order = np.argsort(weights, kind="stable")
+    sorted_sk = sk[torch.from_numpy(order).to(device)].contiguous()
+    t0 = time.perf_counter()
+    pairs = allpairs.threshold_pairs(sorted_sk, d=d,
+                                     threshold=CORPUS_THRESHOLD)
+    rec["tiled_scan_s"] = time.perf_counter() - t0
+    tiled = dedup_mod._result_from_roots(dedup_mod._components_from_pairs(
+        CORPUS_DOCS, order[pairs] if len(pairs) else pairs), CORPUS_DOCS)
+    t0 = time.perf_counter()
+    blocked = dedup_by_sketch_blocked(sk, d, CORPUS_THRESHOLD, device=device)
+    rec["blocked_s"] = time.perf_counter() - t0
+    hit = []
+    thr = torch.tensor(CORPUS_THRESHOLD, dtype=torch.float32, device=device)
+    for i0 in range(0, CORPUS_DOCS, 2048):
+        dist = plain_dist(sk[i0:i0 + 2048], sk, "cham", d)
+        r, c = torch.nonzero(dist < thr, as_tuple=True)
+        keep = i0 + r < c
+        hit.append(torch.stack([i0 + r[keep], c[keep]], 1).cpu().numpy())
+    brute_pairs = np.concatenate(hit)
+    brute = dedup_mod._result_from_roots(dedup_mod._components_from_pairs(
+        CORPUS_DOCS, brute_pairs), CORPUS_DOCS)
+    check(same_dedup(banded, tiled) and same_dedup(banded, blocked)
+          and same_dedup(banded, brute),
+          "corpus dedup: banded, tiled, blocked and brute force differ")
+    check({(min(i, j), max(i, j)) for i, j in order[pairs].tolist()}
+          == {(i, j) for i, j in brute_pairs.tolist()}
+          and len(pairs) == len(brute_pairs),
+          "the tiled scan's pairs differ from brute force")
+    rec.update(dedup_pairs=len(brute_pairs), dedup_groups=banded.n_groups,
+               dedup_removed=banded.n_removed)
+
+    # -- the LM batch pipeline with dedup: the card against the CPU ----------
+    cfg = PipelineConfig(vocab_size=CORPUS_VOCAB, seq_len=PIPE_SEQ,
+                         global_batch=PIPE_BATCH, seed=seed, dedup=True)
+    batches = {}
+    for where, dev in (("card", device), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        pipe = BatchPipeline(cfg, device=dev)
+        batches[where] = [next(pipe) for _ in range(PIPE_BATCHES)]
+        rec[f"pipeline_{where}_batches_per_s"] = (
+            PIPE_BATCHES / (time.perf_counter() - t0))
+        pipe.close()
+        pipe._thread.join(timeout=120)
+        check(not pipe._thread.is_alive(), "the pipeline's prefetch thread "
+              "did not stop")
+    check(all(np.array_equal(a[key], b[key])
+              for a, b in zip(batches["card"], batches["cpu"]) for key in a)
+          and batches["cpu"][0]["tokens"].shape == (PIPE_BATCH, PIPE_SEQ),
+          "the pipeline's batches on the card differ from the CPU's")
+
+    # -- topk over the kept documents, against brute force -------------------
+    qdocs = [doc for doc, k in zip(docs, kept) if k][:CORPUS_QUERIES]
+    q_idx, q_val = dedup_mod.docs_to_categorical(qdocs, CORPUS_VOCAB)
+    (nn_ids, nn_d), n = counted(lambda: gd.topk((q_idx, q_val), K))
+    add(n)
+    mat, m_alive, alive_ids = gd.store.gather_alive()
+    q_sk = sparse_ops.cabin_build_sparse_ref(
+        torch.from_numpy(q_idx).to(device), torch.from_numpy(q_val).to(device),
+        d=d, psi_seed=params.psi_seed, pi_seed=params.pi_seed)
+    bi, bd = brute_topk(q_sk, mat[:m_alive].contiguous(), alive_ids, "cham",
+                        d=d)
+    check(np.array_equal(nn_ids, bi) and np.array_equal(nn_d, bd),
+          "topk over the kept documents differs from brute force")
+    for kernel in ("cabin_build_sparse", "topk_select", "pair_stats",
+                   "row_popcount"):
+        check(total[kernel] > 0,
+              f"kernel {kernel} was not launched in the corpus phase")
+
+    # the corpus-width kernel inputs: a window, the bulk engine's rows and
+    # the kept documents' sketches, one banded strip of the corpus dedup
+    w_idx, w_val = dedup_mod.docs_to_categorical(docs[:CORPUS_WINDOW],
+                                                 CORPUS_VOCAB)
+    strip = dedup_strip(sorted_sk, weights[order], d)
+    bulk_mat, bulk_n, _ = engines["cham"].store.gather_alive()
+    rec["phase_s"] = time.perf_counter() - phase_t0
+    log(f"[corpus] {rec['phase_s']:.1f}s in all; {CORPUS_DOCS} documents (vocab {CORPUS_VOCAB}, mean "
+        f"length {CORPUS_MEAN_LEN}, dup_fraction {CORPUS_DUP}, "
+        f"{rec['tokens']} tokens) made in {rec['generate_s']:.1f}s; p95 "
+        f"distinct tokens {p95}: d = {d}, W = {w}; ingest documents/s "
+        f"(sequential, bulk over {CORPUS_SHARDS} shards): cham "
+        f"{rec['cham_docs_per_s']}, hamming {rec['hamming_docs_per_s']}, "
+        f"bulk equal to sequential (store, archive, ids, launches); ingest "
+        f"with dedup < {CORPUS_THRESHOLD} "
+        f"{rec['dedup_ingest_docs_per_s']:.1f} docs/s, {int(kept.sum())} "
+        f"kept, equal to the CPU's ({rec['dedup_ingest_cpu_s']:.1f}s); "
+        f"corpus dedup {rec['dedup_s']:.3f}s ({len(brute_pairs)} pairs, "
+        f"{banded.n_removed} removed), equal to the tiled scan "
+        f"({rec['tiled_scan_s']:.3f}s), the blocked scan "
+        f"({rec['blocked_s']:.3f}s) and brute force; pipeline batches/s "
+        f"card {rec['pipeline_card_batches_per_s']:.2f}, CPU "
+        f"{rec['pipeline_cpu_batches_per_s']:.2f}, equal; topk over "
+        f"{len(qdocs)} kept documents equal to brute force; kernel "
+        f"launches {total} [{card}]")
+    return {"launches": total, "record": rec, "d": d, "params": params,
+            "window": (torch.from_numpy(w_idx).to(device),
+                       torch.from_numpy(w_val).to(device)),
+            "alive": bulk_mat[:bulk_n].contiguous(), "q_sk": q_sk,
+            "strip": strip}
+
+
+def dedup_strip(sorted_sk: torch.Tensor, weights: np.ndarray, d: int):
+    """The (block, width) strip of the corpus dedup's banded scan whose
+    width is largest: (row block, strip rows) as threshold_pairs takes
+    them."""
+    scores = allpairs.prune_score_host(weights, d, "cham")
+    n, block = sorted_sk.shape[0], 256
+    width = allpairs._band_width(scores, n, block, CORPUS_THRESHOLD,
+                                 allpairs.prune_factor("cham"))
+    return (sorted_sk[:block].contiguous(),
+            sorted_sk[:min(width, n)].contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -1795,15 +2337,16 @@ def kernel_phases(params: CabinParams, idx: torch.Tensor, val: torch.Tensor,
     m_new = st.shape[0]
     migrated = {}
 
-    def at_width(name, kernel, plain, n_bytes, ops, shape, plain_reps=1):
+    def at_width(name, kernel, plain, n_bytes, ops, shape, plain_reps=1,
+                 into=migrated, d=d_new):
         ms = [cuda_ms(kernel, 10) for _ in range(TIMED_RUNS)]
         p_ms = cuda_ms(plain, plain_reps, warmup=0)
         b_ms, b_by = bound(n_bytes, ops, rates)
-        migrated[name] = {"d": d_new, "w": w_new, "shape": shape,
-                          "max_abs_err": 0, "ms": float(np.median(ms)),
-                          "ms_runs": ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                          "bound_by": b_by}
-        log(f"[kernel:{name}:d={d_new}] {shape}: bit-identical to the plain "
+        into[name] = {"d": d, "w": packing.packed_width(d), "shape": shape,
+                      "max_abs_err": 0, "ms": float(np.median(ms)),
+                      "ms_runs": ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                      "bound_by": b_by}
+        log(f"[kernel:{name}:d={d}] {shape}: bit-identical to the plain "
             f"version, kernel {TIMED_RUNS} runs {ms} ms (median "
             f"{float(np.median(ms)):.4f} ms), plain {p_ms:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}: {n_bytes:.0f} bytes, operations {ops})")
@@ -1855,9 +2398,72 @@ def kernel_phases(params: CabinParams, idx: torch.Tensor, val: torch.Tensor,
              topk_ops_needed(nq, m_new, w_new),
              f"{nq} queries x {m_new} rows, k={K}, plan "
              f"{topk_ops.plan(nq, m_new, K, w_new, sms)}")
+
+    # B1-B4 at the corpus phase's width (d = theory.sketch_dim(p95 distinct
+    # tokens a document): W = 412 for these documents), bit for bit
+    corpus = runs["corpus"]
+    d_c, pc = corpus["d"], corpus["params"]
+    w_c = packing.packed_width(d_c)
+    kw_c = dict(d=d_c, psi_seed=pc.psi_seed, pi_seed=pc.pi_seed)
+    wide: dict = {}
+    c_idx, c_val = corpus["window"]
+    check(torch.equal(sparse_ops.cabin_build_sparse(c_idx, c_val, **kw_c),
+                      sparse_ops.cabin_build_sparse_ref(c_idx, c_val, **kw_c)),
+          f"cabin_build_sparse != plain version at d = {d_c}")
+    live = int((c_val != 0).sum())
+    psi_hits = int(hashing.psi_bits(c_idx, c_val, pc.psi_seed).sum())
+    nw = c_idx.shape[0]
+    at_width("cabin_build_sparse",
+             lambda: sparse_ops.cabin_build_sparse(c_idx, c_val, **kw_c),
+             lambda: sparse_ops.cabin_build_sparse_ref(c_idx, c_val, **kw_c),
+             (c_idx.numel() + live) * 4 + nw * w_c * 4,
+             {"int32": live * 22 + psi_hits * 14},
+             f"one window, {nw} documents x {c_idx.shape[1]} slots -> "
+             f"({nw}, {w_c})", into=wide, d=d_c)
+    st_c, qs_c = corpus["alive"], corpus["q_sk"]
+    m_c = st_c.shape[0]
+    check(torch.equal(hamming_ops.row_popcount(st_c),
+                      hamming_ops.row_popcount_ref(st_c)),
+          f"row_popcount != plain version at d = {d_c}")
+    at_width("row_popcount", lambda: hamming_ops.row_popcount(st_c),
+             lambda: hamming_ops.row_popcount_ref(st_c),
+             m_c * w_c * 4 + m_c * 4,
+             {"int32": m_c * w_c, "popc": m_c * w_c},
+             f"the corpus, ({m_c}, {w_c})", into=wide, d=d_c)
+    blk, strip = corpus["strip"]
+    gi, gh = hamming_ops.pair_stats(blk, strip)
+    wi, wh = hamming_ops.pair_stats_ref(blk, strip)
+    check(torch.equal(gi, wi) and torch.equal(gh, wh)
+          and torch.equal(hamming_ops.pair_stats(blk, strip, op_ham=False)[0],
+                          wi),
+          f"pair_stats != plain version at d = {d_c}")
+    mq, nr = blk.shape[0], strip.shape[0]
+    at_width("pair_stats",
+             lambda: hamming_ops.pair_stats(blk, strip, op_ham=False),
+             lambda: hamming_ops.pair_stats_ref(blk, strip, op_ham=False),
+             (mq + nr) * w_c * 4 + mq * nr * 4,
+             pair_ops_needed(mq, nr, w_c),
+             f"the corpus dedup's widest banded strip, {mq} x {nr} x {w_c} "
+             "words, inner only", into=wide, d=d_c)
+    for metric in ("cham", "hamming"):
+        gv, gi = topk_ops.topk_select(qs_c, st_c, K, d=d_c, metric=metric)
+        wv, wi = topk_ops.topk_select_ref(qs_c, st_c, K, d=d_c, metric=metric)
+        check(torch.equal(gi, wi) and torch.equal(gv, wv),
+              f"topk_select != plain version at d = {d_c} ({metric})")
+    nq = qs_c.shape[0]
+    at_width("topk_select",
+             lambda: topk_ops.topk_select(qs_c, st_c, K, d=d_c),
+             lambda: topk_ops.topk_select_ref(qs_c, st_c, K, d=d_c),
+             topk_bytes(nq, m_c, w_c, K),
+             topk_ops_needed(nq, m_c, w_c),
+             f"{nq} kept documents x the bulk engine's {m_c} rows, k={K}, "
+             f"plan {topk_ops.plan(nq, m_c, K, w_c, sms)}", into=wide,
+             d=d_c)
     for entry in out:
         if entry["name"] in migrated:
             entry["migrated_width"] = migrated[entry["name"]]
+        if entry["name"] in wide:
+            entry["corpus_width"] = wide[entry["name"]]
     return out
 
 
@@ -1920,10 +2526,12 @@ def smoke(seed: int, device=torch.device("cuda")) -> None:
     served = frontdoor_phase(
         runs["cham"], gen, {"topk": 1 + TIMED_RUNS, "radius": 1,
                             "pairwise": 1}, card)
+    clustered = cluster_phase(runs["cham"], gen, rng, seed, card)
     for m in ("cham", "hamming"):
         del runs[m]["engine"]
     runs["dense_coo"] = (d_idx, d_val)
     runs["lifecycle"] = lifecycle_phase(idx, val, gen, rng, card)
+    runs["corpus"] = corpus_phase(seed, card, device)
 
     qkv, lm_launches = lm_phase(seed, card)
     launches["flash_attention"] = lm_launches["flash_attention"]
@@ -1937,7 +2545,11 @@ def smoke(seed: int, device=torch.device("cuda")) -> None:
         entry["frontdoor_launches"] = served["launches"][entry["name"]]
         entry["lifecycle_launches"] = runs["lifecycle"]["launches"][
             entry["name"]]
-    print(json.dumps({"lifecycle": runs["lifecycle"]["record"]}))
+        entry["cluster_launches"] = clustered["launches"][entry["name"]]
+        entry["corpus_launches"] = runs["corpus"]["launches"][entry["name"]]
+    print(json.dumps({"lifecycle": runs["lifecycle"]["record"],
+                      "cluster": clustered["record"],
+                      "corpus": runs["corpus"]["record"]}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,11 @@
 all-pairs reductions, after the JAX package's `repro.core`."""
 
 from repro_torch.core.allpairs import (  # noqa: F401
+    argmin_rows,
     kbest_lex_merge,
     prune_factor,
     prune_score_host,
+    rowsum,
     threshold_pairs,
     topk_rows,
     topk_rows_banded,

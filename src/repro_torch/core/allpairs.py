@@ -5,7 +5,12 @@ The port of the JAX package's `repro.core.allpairs` for the serving path:
   topk_rows(a, b, k, d)              per-row k nearest columns of b
   topk_rows_banded(...)              the same over weight-sorted bands,
                                      stopping at an exactness certificate
-  threshold_pairs(a, b, d, thr)      all (i, j) with dist < thr
+  threshold_pairs(a, b, d, thr)      all (i, j) with dist < thr (tiles, or
+                                     weight-sorted strips for dedup)
+  argmin_rows(a, b, d)               per-row nearest column (k-mode
+                                     assignment)
+  rowsum(a, b, d)                    per-row total distance (k-medoid
+                                     centre updates)
 
 plus the host-side helpers the index shares (prune scores, the
 (value, key)-lexicographic k-best merge).
@@ -19,6 +24,8 @@ value (`repro_torch.core.cham`), so they do not depend on the tiling.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -37,6 +44,8 @@ KBEST_KEY_PAD = np.iinfo(np.int64).max
 
 # columns per threshold tile batch: bounds the (rows, columns) temporaries
 _THRESHOLD_COLS = 1 << 16
+# elements of one argmin / rowsum distance tile: bounds the temporaries
+_TILE_ELEMS = 1 << 26
 
 
 def prune_factor(metric: str) -> float:
@@ -75,17 +84,28 @@ def prune_score_host(weights: np.ndarray, d: int, metric: str) -> np.ndarray:
     return weights.astype(np.float64)
 
 
+def _tile_inner(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(rows of a) x (rows of b) int32 shared-bit counts (pair stats)."""
+    from repro_torch.kernels.hamming import ops
+
+    return ops.pair_stats(a, b, op_ham=False)[0]
+
+
+def _tile_ham(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(rows of a) x (rows of b) int32 exact Hamming distances."""
+    from repro_torch.kernels.hamming import ops
+
+    return ops.pair_stats(a, b, op_inner=False)[1]
+
+
 def _tile_stats_dist(a: torch.Tensor, b: torch.Tensor, wa: torch.Tensor,
                      wb: torch.Tensor, table: torch.Tensor | None
                      ) -> torch.Tensor:
     """(rows of a) x (rows of b) f32 distance tile from pair stats."""
-    from repro_torch.kernels.hamming import ops
-
     if table is not None:
-        inner, _ = ops.pair_stats(a, b, op_ham=False)
-        return cham_from_table(table, wa[:, None], wb[None, :], inner)
-    _, ham = ops.pair_stats(a, b, op_inner=False)
-    return ham.to(torch.float32)
+        return cham_from_table(table, wa[:, None], wb[None, :],
+                               _tile_inner(a, b))
+    return _tile_ham(a, b).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -111,6 +131,7 @@ def _block_score_ranges(w: torch.Tensor, n: int, block: int,
 def threshold_pairs(a: torch.Tensor, b: torch.Tensor | None = None, *,
                     d: int, threshold: float, metric: str = "cham",
                     block: int = 256, sorted_by_weight: bool = False,
+                    weights: np.ndarray | None = None,
                     n_valid: int | None = None,
                     m_valid: int | None = None) -> np.ndarray:
     """All pairs (i, j) with dist(a[i], b[j]) < threshold, as a compact
@@ -121,13 +142,21 @@ def threshold_pairs(a: torch.Tensor, b: torch.Tensor | None = None, *,
     `m_valid` declare how many leading rows of a / b are real (asymmetric
     scans only).  A tile whose rows' prune-score ranges lie further apart
     than the threshold allows yields no pair, exactly as the reference's
-    weight-band tile prune skips it.  The weight-sorted banded scan
-    (`sorted_by_weight=True`) belongs to the data/dedup slice."""
-    if sorted_by_weight:
-        raise NotImplementedError(
-            "threshold_pairs(sorted_by_weight=True) is not ported yet: it "
-            "comes with the data/dedup slice")
+    weight-band tile prune skips it.
+
+    `sorted_by_weight=True` (symmetric only) promises that the rows are
+    sorted by sketch weight (`weights`, host int array, may pass them);
+    the scan then takes one (block, width) strip of columns per row block,
+    the width from the host bound dist >= factor * |s_i - s_j|, and yields
+    its pairs in the reference's banded order (row blocks, row-major inside
+    each strip).  Every pair is decided by the same distance as the tiled
+    scan (the Cham table, or the exact XOR count), so the pair SET equals
+    the tiled scan's bit for bit; the reference's log-free inner-product
+    test is not used."""
     symmetric = b is None
+    if sorted_by_weight and not symmetric:
+        raise ValueError("sorted_by_weight=True needs the symmetric scan "
+                         "(b=None)")
     if symmetric and (n_valid is not None or m_valid is not None):
         raise ValueError("n_valid/m_valid require an explicit b "
                          "(asymmetric scan)")
@@ -145,6 +174,9 @@ def threshold_pairs(a: torch.Tensor, b: torch.Tensor | None = None, *,
     factor = prune_factor(metric)
     table = (cham_table(d, a.device, a.shape[1]) if metric == "cham"
              else None)
+    if sorted_by_weight:
+        return _banded_pairs(a, d=d, threshold=threshold, metric=metric,
+                             block=block, weights=weights, table=table)
     wa = packing.popcount_rows(a)
     wb = wa if symmetric else packing.popcount_rows(b_arr)
     thr = torch.tensor(threshold, dtype=torch.float32, device=a.device)
@@ -183,6 +215,188 @@ def threshold_pairs(a: torch.Tensor, b: torch.Tensor | None = None, *,
     if not out:
         return np.zeros((0, 2), np.int32)
     return torch.cat(out).numpy().astype(np.int32)
+
+
+def _band_width(scores: np.ndarray, n: int, block: int, threshold: float,
+                factor: float) -> int:
+    """Max strip width so that every j >= i0 + width is prunable for row
+    block i0 (columns beyond it satisfy factor*gap >= threshold + margin),
+    rounded up to a block multiple; the reference's rule."""
+    reach = (threshold + PRUNE_MARGIN) / factor
+    width = block
+    for i0 in range(0, n, block):
+        s_hi = scores[min(i0 + block, n) - 1]
+        hi = int(np.searchsorted(scores, s_hi + reach, side="left"))
+        width = max(width, hi - i0)
+    n_pad = ((n + block - 1) // block) * block
+    return min(((width + block - 1) // block) * block, n_pad)
+
+
+def _banded_pairs(a: torch.Tensor, *, d: int, threshold: float, metric: str,
+                  block: int, weights: np.ndarray | None,
+                  table: torch.Tensor | None) -> np.ndarray:
+    """threshold_pairs' weight-sorted scan over the n rows of `a`: row
+    block i0 against the strip [i0, i0 + width), pairs with i < j."""
+    n = a.shape[0]
+    wa = packing.popcount_rows(a)
+    if weights is None:
+        weights = wa.cpu().numpy()
+    weights = np.asarray(weights)
+    if np.any(np.diff(weights) < 0):
+        raise ValueError("sorted_by_weight=True but rows are not sorted "
+                         "by sketch weight")
+    scores = prune_score_host(weights, d, metric)
+    width = _band_width(scores, n, block, threshold, prune_factor(metric))
+    thr = torch.tensor(threshold, dtype=torch.float32, device=a.device)
+    out = []
+    for i0 in range(0, n, block):
+        j1 = min(i0 + width, n)
+        dist = _tile_stats_dist(a[i0:i0 + block], a[i0:j1],
+                                wa[i0:i0 + block], wa[i0:j1], table)
+        bm, bw = dist.shape
+        gi = torch.arange(bm, device=a.device)[:, None]
+        gj = torch.arange(bw, device=a.device)[None, :]
+        r, c = torch.nonzero((dist < thr) & (gi < gj), as_tuple=True)
+        if len(r):
+            out.append(torch.stack([i0 + r, i0 + c], dim=1).cpu())
+    if not out:
+        return np.zeros((0, 2), np.int32)
+    return torch.cat(out).numpy().astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# row-wise argmin and row sums (k-mode assignment, k-medoid updates)
+# ---------------------------------------------------------------------------
+
+
+def _row_tiles(n: int, m: int, block: int):
+    """(rows of a, columns of b) tile slices: columns in blocks of `block`,
+    rows in chunks that keep a tile under _TILE_ELEMS elements."""
+    rows = max(1, _TILE_ELEMS // max(1, min(block, m)))
+    for i0 in range(0, n, rows):
+        for j0 in range(0, m, block):
+            yield slice(i0, i0 + rows), slice(j0, min(j0 + block, m))
+
+
+def _check_m_valid(b: torch.Tensor, m_valid: int | None) -> int:
+    m = b.shape[0] if m_valid is None else int(m_valid)
+    if not 0 <= m <= b.shape[0]:
+        raise ValueError(f"m_valid={m} outside the {b.shape[0]} supplied "
+                         "rows")
+    return m
+
+
+def argmin_rows(a: torch.Tensor, b: torch.Tensor, *, d: int,
+                metric: str = "cham", block: int = 2048,
+                m_valid: int | None = None) -> tuple[np.ndarray, np.ndarray]:
+    """Per-row nearest column of b[:m_valid]: (indices (N,) int32,
+    distances (N,) f32) on the host, streaming over blocks of b.  Ties go
+    to the first minimum, as np.argmin over the whole matrix: inside a
+    tile the lowest column of the tile's minimum, across tiles a strict <.
+    An empty b gives index 0 and distance inf."""
+    prune_factor(metric)  # validates the metric
+    m = _check_m_valid(b, m_valid)
+    n = a.shape[0]
+    best = torch.full((n,), float("inf"), dtype=torch.float32,
+                      device=a.device)
+    besti = torch.zeros((n,), dtype=torch.int64, device=a.device)
+    if n == 0 or m == 0:
+        return besti.to(torch.int32).cpu().numpy(), best.cpu().numpy()
+    a = a.contiguous()
+    b = b[:m].contiguous()
+    table = cham_table(d, a.device, a.shape[1]) if metric == "cham" else None
+    wa = packing.popcount_rows(a)
+    wb = packing.popcount_rows(b)
+    for rows, cols in _row_tiles(n, m, block):
+        dist = _tile_stats_dist(a[rows], b[cols], wa[rows], wb[cols], table)
+        tmin = dist.amin(dim=1)
+        col = torch.arange(cols.start, cols.stop, device=a.device)
+        targ = torch.where(dist == tmin[:, None], col[None, :],
+                           cols.stop).amin(dim=1)
+        upd = tmin < best[rows]
+        best[rows] = torch.where(upd, tmin, best[rows])
+        besti[rows] = torch.where(upd, targ, besti[rows])
+    return besti.to(torch.int32).cpu().numpy(), best.cpu().numpy()
+
+
+def _square_tiles(n: int):
+    """(row block, column block) pairs with column >= row of an (n, n)
+    self-distance matrix, in square blocks under _TILE_ELEMS elements."""
+    side = max(1, math.isqrt(_TILE_ELEMS))
+    for i0 in range(0, n, side):
+        for j0 in range(i0, n, side):
+            yield slice(i0, min(i0 + side, n)), slice(j0, min(j0 + side, n))
+
+
+def _half_cham_sums(tu2: torch.Tensor, t_row: torch.Tensor,
+                    t_col: torch.Tensor, dim: int, out: torch.Tensor
+                    ) -> torch.Tensor:
+    """Adds to `out` the exact sums along `dim` of h = (2*T[u] - t_row) -
+    t_col clamped at 0 (the float steps of `binhamming_from_table`, with
+    2*T[u] given as `tu2`: the doubling is exact, so the same bits), split
+    into integer parts and fractions, float64 (rows: whole, fraction)."""
+    h = (tu2 - t_row).sub_(t_col).clamp_(min=0.0)
+    whole = h.floor()
+    out[0] += whole.sum(dim=dim, dtype=torch.float64)
+    out[1] += h.sub_(whole).sum(dim=dim, dtype=torch.float64)
+    return out
+
+
+def rowsum(a: torch.Tensor, b: torch.Tensor | None = None, *, d: int,
+           metric: str = "cham", block: int = 2048,
+           m_valid: int | None = None) -> np.ndarray:
+    """Per-row total distance to b[:m_valid] (b=None: to a[:m_valid]), as
+    (N,) float64 on the host, streaming over tiles (`block` columns, or
+    square tiles of the symmetric self-distance matrix, each computed
+    once for both its rows and its columns); columns past `m_valid` (the
+    pad rows `padded_take` repeats) are never counted.
+
+    The totals are exact, so they are the same bits on every device and
+    for every tiling: under hamming int64 sums of the integer distances;
+    under cham each half-distance h = (2*T[u] - T[a]) - T[b] is formed in
+    f32 from table entries that are 0 or at least 0.5, each a multiple of
+    2**-24, and f32 rounding keeps that, so h splits exactly into its
+    integer part and its fraction, and float64 sums of each are exact (up
+    to 2**29 columns).  Their total, doubled, is rounded once.  The
+    reference sums in f32 in tile order, which differs from this at most
+    by that rounding."""
+    prune_factor(metric)
+    symmetric = b is None and (m_valid is None or int(m_valid) == a.shape[0])
+    if b is None:
+        b = a
+    m = _check_m_valid(b, m_valid)
+    n = a.shape[0]
+    if n == 0 or m == 0:
+        return np.zeros(n, np.float64)
+    a = a.contiguous()
+    b = b[:m].contiguous()
+    tiles = _square_tiles(n) if symmetric else _row_tiles(n, m, block)
+    if metric == "hamming":
+        total = torch.zeros((n,), dtype=torch.int64, device=a.device)
+        for rows, cols in tiles:
+            ham = _tile_ham(a[rows], b[cols])
+            total[rows] += ham.sum(dim=1, dtype=torch.int64)
+            if symmetric and cols != rows:
+                total[cols] += ham.sum(dim=0, dtype=torch.int64)
+        return total.cpu().numpy().astype(np.float64)
+    table = cham_table(d, a.device, a.shape[1])
+    table2 = 2.0 * table
+    wa = packing.popcount_rows(a)
+    wb = wa if symmetric else packing.popcount_rows(b)
+    ta, tb = table[wa], table[wb]
+    acc = torch.zeros((2, n), dtype=torch.float64, device=a.device)
+    for rows, cols in tiles:
+        u = _tile_inner(a[rows], b[cols]).neg_().add_(
+            wa[rows, None]).add_(wb[None, cols])
+        tu2 = table2[u]
+        _half_cham_sums(tu2, ta[rows, None], tb[None, cols], 1,
+                        acc[:, rows])
+        if symmetric and cols != rows:
+            # the transposed pairs: Cham(j, i) subtracts in the other
+            # order, which can round differently from Cham(i, j)
+            _half_cham_sums(tu2, tb[None, cols], ta[rows, None], 0,
+                            acc[:, cols])
+    return 2.0 * (acc[0] + acc[1]).cpu().numpy()
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,12 @@
 """Online similarity serving of the PyTorch port, after the JAX package's
 `repro.index`: store, banded layout, partitions, the query engine, the
-Mergeable contract and the spec migration.  (`ingest_documents` and
-`bulk_ingest` come with a later slice of the port.)"""
+Mergeable contract, the spec migration, streaming document ingest and the
+merge-tree bulk load."""
 
 from repro_torch.index.bands import BandedLayout  # noqa: F401
 from repro_torch.index.engine import QueryEngine  # noqa: F401
+from repro_torch.index.ingest import ingest_documents  # noqa: F401
+from repro_torch.index.merge_tree import bulk_ingest, merge_tree  # noqa: F401
 from repro_torch.index.mergeable import (Mergeable,  # noqa: F401
                                          MergeIncompatible, check_id_disjoint,
                                          check_spec_compatible)

@@ -33,6 +33,8 @@ the fused top-k select serves `topk`, and pair stats serve `radius` and
     migration in flight included, in the JAX package's
     ``repro.index.v2`` format: a snapshot either package wrote restores
     in the other.  Every answer is bit-identical at every shard count.
+  * Clustering: `cluster(k)` attaches a `repro_torch.cluster.ClusterIndex`
+    that follows the engine's mutation events.
 
 The engine runs on `device="cuda"` unless the caller asks for the CPU,
 where every kernel is replaced by its plain version.
@@ -58,16 +60,6 @@ from repro_torch.index.partition import PartitionSet
 from repro_torch.index.store import SketchSpec, SketchStore
 
 _METRICS = ("cham", "hamming")
-
-
-def _later(name: str, slice_name: str):
-    def method(*args, **kwargs):
-        raise NotImplementedError(
-            f"QueryEngine.{name} is not ported yet: it comes with the "
-            f"{slice_name} slice of the PyTorch port")
-
-    method.__name__ = name
-    return method
 
 
 def _packed_on_device(sk, device: torch.device) -> torch.Tensor:
@@ -976,6 +968,18 @@ class QueryEngine:
             self._mig.invalidate_serving_tiers()
         self._cache.clear()
 
-    # -- later slices of the port -------------------------------------------
+    # -- clustering ---------------------------------------------------------
 
-    cluster = _later("cluster", "clustering")
+    def cluster(self, k: int, **kwargs):
+        """Attach a `repro_torch.cluster.ClusterIndex` maintaining k-medoid
+        centres and per-row labels over this engine's rows: fresh adds are
+        assigned to their nearest centre as they arrive (through this
+        engine's own serving path, on its device), removes update the
+        per-cluster bookkeeping, and `refit()` re-clusters the live
+        membership.  Keyword args (seed / n_iter / block / refit_every)
+        forward to ClusterIndex.  The engine keeps a strong reference to
+        the attached index: `detach()` an old one before attaching a
+        replacement."""
+        from repro_torch.cluster import ClusterIndex  # it imports this module
+
+        return ClusterIndex(self, k, **kwargs)

@@ -16,8 +16,13 @@ Nothing here gives up quietly: a missing nvcc, a failed compile or a failed
 launch raises RuntimeError with the compiler's output or the CUDA error.
 
 `LAUNCHES` counts, per kernel, the launches its wrapper made: each wrapper
-adds one where it launches, and nowhere else, so a run can show that its
-main path went through the kernels.
+adds one where it launches (`count_launch`), and nowhere else, so a run
+can show that its main path went through the kernels.
+
+Kernels launch from several threads at once (bulk ingest's workers, the
+front door's dispatcher): the first build and load of a library happens
+under a lock, each build writes a temporary file of its own thread, and
+the launch counts move under a lock.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -49,11 +55,23 @@ LAUNCHES = {"cabin_build": 0, "cabin_build_sparse": 0, "flash_attention": 0,
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+# held across a build and the first load of a library (re-entered by
+# `function`, which builds), and around every change of LAUNCHES
+_load_lock = threading.RLock()
+_count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of kernel `name` (its wrapper calls this right after
+    a launch succeeds)."""
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def find_nvcc() -> str:
@@ -87,7 +105,14 @@ def library_path(name: str) -> Path:
 
 def build(names=SOURCES) -> dict[str, Path]:
     """Compile every named source whose library is missing, one nvcc per
-    source, all started together.  Returns name -> library path."""
+    source, all started together.  Returns name -> library path.  A
+    second thread asking for the same libraries waits for the first's
+    build and then finds them built."""
+    with _load_lock:
+        return _build(names)
+
+
+def _build(names) -> dict[str, Path]:
     paths = {n: library_path(n) for n in names}
     todo = {n: p for n, p in paths.items() if not p.is_file()}
     if not todo:
@@ -96,7 +121,8 @@ def build(names=SOURCES) -> dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     for name, out in todo.items():
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        tmp = out.with_name(
+            f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
         cmd = [nvcc, *nvcc_flags(name), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
         procs.append((name, tmp, out, subprocess.Popen(
@@ -119,17 +145,21 @@ def function(lib_name: str, fn_name: str, argtypes) -> ctypes._CFuncPtr:
     declared to take `argtypes` and return an int CUDA error code."""
     key = (lib_name, fn_name)
     fn = _fns.get(key)
-    if fn is None:
-        lib = _libs.get(lib_name)
-        if lib is None:
-            lib = ctypes.CDLL(str(build((lib_name,))[lib_name]))
-            lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.repro_cuda_error_string.restype = ctypes.c_char_p
-            _libs[lib_name] = lib
-        fn = getattr(lib, fn_name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-        _fns[key] = fn
+    if fn is not None:
+        return fn
+    with _load_lock:
+        fn = _fns.get(key)
+        if fn is None:
+            lib = _libs.get(lib_name)
+            if lib is None:
+                lib = ctypes.CDLL(str(build((lib_name,))[lib_name]))
+                lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+                lib.repro_cuda_error_string.restype = ctypes.c_char_p
+                _libs[lib_name] = lib
+            fn = getattr(lib, fn_name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            _fns[key] = fn
     return fn
 
 

@@ -42,5 +42,5 @@ def cabin_build(x: torch.Tensor, *, d: int, psi_seed: int, pi_seed: int
               psi_seed & 0xFFFFFFFF, pi_seed & 0xFFFFFFFF,
               build.stream_ptr(x.device))
     build.check("cabin_build", "cabin_build", code)
-    build.LAUNCHES["cabin_build"] += 1
+    build.count_launch("cabin_build")
     return out

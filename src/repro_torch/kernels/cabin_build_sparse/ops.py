@@ -81,5 +81,5 @@ def cabin_build_sparse(indices: torch.Tensor, values: torch.Tensor, *,
               p.rows_per_block, int(p.device_bitmap),
               build.stream_ptr(indices.device))
     build.check("cabin_build_sparse", "cabin_build_sparse", code)
-    build.LAUNCHES["cabin_build_sparse"] += 1
+    build.count_launch("cabin_build_sparse")
     return out

@@ -93,7 +93,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               hq, hkv, s, skv, dh, dv, int(causal), 1.0 / (dh ** 0.5),
               int(q.dtype == torch.bfloat16), build.stream_ptr(q.device))
     build.check("flash_attention", "flash_attention", code)
-    build.LAUNCHES["flash_attention"] += 1
+    build.count_launch("flash_attention")
     return out
 
 

@@ -50,7 +50,7 @@ def pair_stats(a: torch.Tensor, b: torch.Tensor, *, op_inner: bool = True,
               build.ptr(ham) if op_ham else None, m, n, w,
               build.stream_ptr(a.device))
     build.check("hamming", "pair_stats", code)
-    build.LAUNCHES["pair_stats"] += 1
+    build.count_launch("pair_stats")
     return inner, ham
 
 
@@ -69,7 +69,7 @@ def row_popcount(x: torch.Tensor) -> torch.Tensor:
     fn = build.function("hamming", "row_popcount_launch", _ROW_ARGS)
     code = fn(build.ptr(x), build.ptr(out), m, w, build.stream_ptr(x.device))
     build.check("hamming", "row_popcount", code)
-    build.LAUNCHES["row_popcount"] += 1
+    build.count_launch("row_popcount")
     return out
 
 

@@ -93,7 +93,7 @@ def _kernel_pass(q, b, vals, idxs, col0, kr, p: Plan, *, d, metric, m,
               col0, int(cham), table.numel() if cham else 0, p.bq, p.splits,
               p.rows_per_split, build.stream_ptr(q.device))
     build.check("topk_select", "topk_select", code)
-    build.LAUNCHES["topk_select"] += 1
+    build.count_launch("topk_select")
 
 
 def topk_select(q: torch.Tensor, b: torch.Tensor, k: int, *, d: int,

@@ -23,11 +23,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.cluster import ClusterIndex
 from repro_torch.configs.base import ParallelConfig, reduced_for_smoke
 from repro_torch.configs.registry import get_config
 from repro_torch.core import allpairs
 from repro_torch.core.cabin import CabinParams, sketch_sparse
-from repro_torch.index import QueryEngine
+from repro_torch.core import kmode
+from repro_torch.data import dedup, pipeline
+from repro_torch.index import QueryEngine, bulk_ingest, ingest_documents
 from repro_torch.kernels import build
 from repro_torch.kernels.cabin_build import ops as dense_ops
 from repro_torch.kernels.cabin_build_sparse import ops as sparse_ops
@@ -584,3 +587,170 @@ def test_lifecycle_on_cuda_equals_the_cpu(dev, metric, tmp_path):
                               band_rows=64)
     for x, y in zip(res.topk(queries, 7), c.topk(queries, 7)):
         assert np.array_equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# data, bulk ingest and clustering: the card against the CPU
+# ---------------------------------------------------------------------------
+
+
+def _corpus(n, vocab=3000, seed=5):
+    import itertools
+
+    return list(itertools.islice(pipeline.synthetic_documents(
+        vocab, seed, mean_len=128, dup_fraction=0.3), n))
+
+
+@pytest.mark.parametrize("metric", ["cham", "hamming"])
+@pytest.mark.parametrize("d", [256, 4096, 13161])
+def test_argmin_rowsum_and_banded_scan_on_cuda_equal_the_cpu(dev, metric, d):
+    """Row argmin, exact row sums (square tiles included) and the banded
+    threshold scan give the same bits on the card as on the CPU, at word
+    counts with and without 16-byte rows."""
+    rng = np.random.default_rng(d)
+    x = _words(rng, 700, (d + 31) // 32, dev)
+    x[:200] &= _words(rng, 200, (d + 31) // 32, dev)
+    w = hamming_ops.row_popcount_ref(x).cpu().numpy()
+    x = x[torch.from_numpy(np.argsort(w, kind="stable")).to(dev)]
+    xc = x.cpu()
+    for a, b in ((x, x[:37]), (x[:50], x)):
+        got = allpairs.argmin_rows(a, b, d=d, metric=metric, block=64)
+        want = allpairs.argmin_rows(a.cpu(), b.cpu(), d=d, metric=metric,
+                                    block=64)
+        for g, c in zip(got, want):
+            np.testing.assert_array_equal(g, c)
+    got = allpairs.rowsum(x, d=d, metric=metric)
+    np.testing.assert_array_equal(got, allpairs.rowsum(xc, d=d,
+                                                       metric=metric))
+    # exact sums: the general path's totals are the symmetric path's
+    for a, b in ((x[:100], x), (xc[:100], xc)):
+        np.testing.assert_array_equal(
+            allpairs.rowsum(a, b, d=d, metric=metric, block=33), got[:100])
+    dist = allpairs.rowsum(x[:1], x, d=d, metric=metric)
+    thr = float(dist[0]) / 700
+    for sorted_by_weight in (True, False):
+        got = allpairs.threshold_pairs(x, d=d, threshold=thr, metric=metric,
+                                       sorted_by_weight=sorted_by_weight)
+        want = allpairs.threshold_pairs(xc, d=d, threshold=thr,
+                                        metric=metric,
+                                        sorted_by_weight=sorted_by_weight)
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("metric", ["cham", "hamming"])
+def test_kmode_packed_on_cuda_equals_the_cpu(dev, metric):
+    rng = np.random.default_rng(0)
+    x = _words(rng, 600, 128, dev)
+    x[:300] &= x[300:]
+    for kw in ({}, {"batch_rows": 96}):
+        got = kmode.kmode_packed(x, 7, d=4096, n_iter=6, seed=3,
+                                 metric=metric, device=dev, **kw)
+        want = kmode.kmode_packed(x.cpu(), 7, d=4096, n_iter=6, seed=3,
+                                  metric=metric, device="cpu", **kw)
+        for g, c in zip(got, want):
+            np.testing.assert_array_equal(g, c)
+
+
+def test_dedup_and_pipeline_on_cuda_equal_the_cpu(dev):
+    docs = _corpus(300)
+    idx, val = dedup.docs_to_categorical(docs, 3000)
+    _, sk = dedup.sketch_corpus(idx, val, 3000, 1024, device=dev)
+    _, sk_cpu = dedup.sketch_corpus(idx, val, 3000, 1024, device="cpu")
+    assert sk.is_cuda and torch.equal(sk.cpu(), sk_cpu)
+    for thr in (8.0, 40.0):
+        got = dedup.dedup_by_sketch(sk, 1024, thr, device=dev)
+        want = dedup.dedup_by_sketch(sk_cpu, 1024, thr, device="cpu")
+        blocked = dedup.dedup_by_sketch_blocked(sk, 1024, thr, block=128,
+                                                device=dev)
+        for r in (want, blocked):
+            np.testing.assert_array_equal(got.keep_mask, r.keep_mask)
+            np.testing.assert_array_equal(got.group_ids, r.group_ids)
+    cfg = pipeline.PipelineConfig(vocab_size=3000, seq_len=128,
+                                  global_batch=4, seed=2, dedup=True,
+                                  dedup_window=64)
+    pipes = [pipeline.BatchPipeline(cfg, device=d) for d in (dev, "cpu")]
+    try:
+        for _ in range(3):
+            a, b = (next(p) for p in pipes)
+            for key in a:
+                np.testing.assert_array_equal(a[key], b[key])
+    finally:
+        for p in pipes:
+            p.close()
+
+
+@pytest.mark.parametrize("metric", ["cham", "hamming"])
+def test_bulk_ingest_on_cuda_equals_sequential_and_counts_exactly(dev,
+                                                                  metric):
+    """Four worker threads on the card: the sequential build's bits, the
+    CPU's, and every launch counted (one B1 and one B4 a window, one B4 a
+    store merge)."""
+    docs = _corpus(256)
+    params = CabinParams.create(3000, 1024, seed=1)
+    shards = [docs[:50], docs[50:128], docs[128:200], docs[200:]]
+    seq = QueryEngine(params, metric=metric, device=dev)
+    ids_seq = ingest_documents(seq, docs, window=32)
+    par = QueryEngine(params, metric=metric, device=dev)
+    before = dict(build.LAUNCHES)
+    ids_par = bulk_ingest(par, shards, workers=4, window=32)
+    torch.cuda.synchronize()
+    n = {k: build.LAUNCHES[k] - before[k] for k in before}
+    windows = sum(-(-len(s) // 32) for s in shards)
+    assert n["cabin_build_sparse"] == windows
+    assert n["row_popcount"] == windows + len(shards)
+    cpu = QueryEngine(params, metric=metric, device="cpu")
+    bulk_ingest(cpu, shards, workers=4, window=32)
+    np.testing.assert_array_equal(ids_par, ids_seq)
+    for e in (seq, cpu):
+        a, b = par.store.state_tree(), e.store.state_tree()
+        for key in a:
+            np.testing.assert_array_equal(a[key], b[key])
+    for thr in (40.0,):
+        g = QueryEngine(params, metric=metric, device=dev)
+        c = QueryEngine(params, metric=metric, device="cpu")
+        np.testing.assert_array_equal(
+            ingest_documents(g, docs, window=64, dedup_threshold=thr),
+            ingest_documents(c, docs, window=64, dedup_threshold=thr))
+
+
+@pytest.mark.parametrize("metric", ["cham", "hamming"])
+def test_cluster_index_on_cuda_equals_the_cpu(dev, metric, tmp_path):
+    """The same history on both devices: attach, incremental adds, a
+    remove, a migration with adds mid-flight, save and a cross-device
+    restore; every label, count, weight and centre equal."""
+    rng = np.random.default_rng(4)
+    params = CabinParams.create(5000, 512, seed=3)
+
+    def coo(n):
+        idx = rng.integers(0, 5000, size=(n, 40)).astype(np.int32)
+        val = rng.integers(0, 6, size=(n, 40)).astype(np.int32)
+        return idx, val
+
+    batches = [coo(600), coo(100), coo(50)]
+    out = {}
+    for d in ("cpu", dev):
+        e = QueryEngine(params, metric=metric, device=d)
+        e.add_sparse(*batches[0])
+        ci = e.cluster(6, seed=1, n_iter=8, refit_every=120)
+        e.add_sparse(*batches[1])
+        e.remove(np.arange(0, 700, 11))
+        e.migrate(d=768, drive="manual", batch_rows=128)
+        e.migration_step()
+        e.add_sparse(*batches[2])
+        e.migrate_all()
+        path = str(tmp_path / torch.device(d).type)
+        ci.save(path)
+        out[torch.device(d).type] = (ci, path)
+    (c, c_path), (g, g_path) = out["cpu"], out["cuda"]
+
+    def same(a, b):
+        for x, y in zip(a.labels(), b.labels()):
+            np.testing.assert_array_equal(x, y)
+        for name in ("counts", "weights", "centers", "medoid_ids"):
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+
+    same(c, g)
+    assert c.n_refits == g.n_refits
+    same(ClusterIndex.restore(g_path, device="cpu"), c)
+    same(ClusterIndex.restore(c_path, device=dev), g)
+    np.testing.assert_array_equal(c.refit(n_iter=3), g.refit(n_iter=3))

@@ -271,10 +271,3 @@ def test_coo_batches_of_width_zero_answer_as_the_reference(metric):
     _check_queries(ref, got, zero_q, metric, d)
     assert (got.topk(zero_q, 2)[0] == [200, 201]).all()
     _check_queries(ref, got, _coo(rng, 5), metric, d)
-
-
-@pytest.mark.parametrize("name", ["cluster"])
-def test_methods_of_later_slices_raise_not_implemented(name):
-    _, got = _engines("cham", 200)
-    with pytest.raises(NotImplementedError, match="slice"):
-        getattr(got, name)()

@@ -86,6 +86,17 @@ def test_entry_points_default_to_cuda():
         assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
+def test_data_and_cluster_entry_points_default_to_cuda():
+    from repro_torch.cluster import ClusterIndex
+    from repro_torch.core.kmode import kmode_packed, kmode_precomputed
+    from repro_torch.data import dedup, pipeline
+
+    for fn in (dedup.sketch_corpus, dedup.dedup_by_sketch,
+               dedup.dedup_by_sketch_blocked, pipeline.BatchPipeline.__init__,
+               kmode_packed, kmode_precomputed, ClusterIndex.restore):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
 def test_engine_without_device_raises_where_cuda_is_absent(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     params = CabinParams.create(100, 64)
