@@ -136,7 +136,35 @@ Phases, each fatal on failure (exit code other than 0, no result line):
               topk (k = 10) of 256 kept documents brute force.  For the
               record: documents/s sequential and bulk, dedup seconds,
               pipeline batches/s.
- 9. lm      - llama3-8B at full width and depth (32 layers, d_model 4096,
+ 9. paper   - every figure function of repro_torch.experiments.paper (the
+              twin of benchmarks/bench_paper.py: Figs 2-10, Tables 3-4,
+              Theorem 2) on each of the paper's six Table 1 datasets at
+              full width (n up to 1,306,127 for BrainCell, density and
+              categories unscaled), 2,000 rows each (BrainCell's whole
+              count; NIPS its whole 1,500; the clustering figures on as
+              many rows of 4 clusters),
+              drawn on the host by the port's generator in 2 worker
+              processes started when the corpus phase ends (no earlier
+              phase shares the host with them; this phase waits for
+              them and prints how long).  Each figure keeps
+              its twin's ratio of sketch dimension to density: d = twin d
+              / twin scale, rounded up to 32 (printed).  The launch counts
+              are set to 0 just before and B3-B5 must have risen just
+              after.  Every ordering the reference asserts must hold (all
+              figures run first, then the phase fails naming each that did
+              not); Table 3's speedups are printed with the card's name
+              and power limit (none asserted, as in the reference).  Then
+              the four baseline sketches of 4 rows a dataset on the card
+              must equal the same functions on CPU copies, and B5 (all
+              rows, at every figure's d and Theorem 2's), B4 (all rows'
+              sketches at the widest of these d) and B3 (its whole
+              all-pairs output on those sketches, both outputs, and on
+              the exact distances' (attribute, category) bitmaps, inner
+              only, held on its first and last 64 rows, the last with
+              the kernel's partial row tile) their plain versions bit for
+              bit; the widest of each is timed with its bound (entry
+              "paper_width").  Peak device memory is printed.
+10. lm      - llama3-8B at full width and depth (32 layers, d_model 4096,
               32 heads / 8 KV heads, vocab 128,256, bf16), weights drawn on
               the card from --seed (16 GB).  ServeEngine.generate answers 4
               requests of 1,024 random prompt tokens, caches of 2,048
@@ -162,8 +190,21 @@ Phases, each fatal on failure (exit code other than 0, no result line):
               layer alone: the per-layer check must flag exactly the
               faulty layers, the end-to-end rule must reject the fault in
               every layer, and its readings under each fault are printed
-              beside the sound ones.
-10. kernels - each kernel against its plain version on the card, at the
+              beside the sound ones.  Then the dense weights, engines
+              and logits are freed (what stays on the card beyond the
+              recorded attention call must be under 64 MiB, printed) and
+              llama3-8B runs again with CabinEmbed (16,384 buckets,
+              this phase's choice, k = 2; weights from the same
+              generator): hashed_embed on the card must equal the CPU's
+              on copies bit for bit and hashed_logits agree to 2**-10 of
+              the largest |logit|; a generate of 4 requests of 1,024
+              tokens and 8 greedy new tokens through the kernel path (32
+              flash launches, counted apart as "cabinembed_launches") and
+              the plain path must pass the end-to-end rule, and each of
+              the kernel path's 32 prefill attention outputs B6's
+              tolerance.  Its parameter count is printed beside the dense
+              model's.
+11. kernels - each kernel against its plain version on the card, at the
               shapes the main path gave it: B1-B5 bit for bit (B2 also at
               the kept band-walk chunks; B5 also against the sparse plain
               version of the same rows), B6 on the prefill's first
@@ -211,10 +252,11 @@ Phases, each fatal on failure (exit code other than 0, no result line):
               512-document window, B2 for the 256 kept documents over the
               bulk engine at k = 10, B3 on the corpus dedup's widest
               banded strip, B4 over the corpus.
-11. output  - one JSON line of the lifecycle, cluster and corpus phases'
-              records, the nvidia-smi line, one JSON line listing the
-              kernels (with the launches of the main path, the frontdoor,
-              lifecycle, cluster and corpus phases), and last the line
+12. output  - one JSON line of the lifecycle, cluster, corpus and paper
+              phases' records and the CabinEmbed run's, the nvidia-smi
+              line, one JSON line listing the kernels (with the launches
+              of the main path, the frontdoor, lifecycle, cluster, corpus
+              and paper phases and the CabinEmbed run), and last the line
               {"ok": true, "device": {...}}.
 """
 
@@ -222,8 +264,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import itertools
 import json
+import multiprocessing
 import re
 import subprocess
 import sys
@@ -241,13 +285,16 @@ from repro_torch import obs  # noqa: E402
 from repro_torch.cluster import ClusterIndex  # noqa: E402
 from repro_torch.configs.base import ParallelConfig  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
-from repro_torch.core import allpairs, hashing, packing, theory  # noqa: E402
-from repro_torch.core.cabin import CabinParams  # noqa: E402
+from repro_torch.core import (allpairs, baselines, hashing,  # noqa: E402
+                              packing, theory)
+from repro_torch.core.cabin import CabinParams, binem  # noqa: E402
 from repro_torch.core.cham import cham_from_table, cham_table  # noqa: E402
 from repro_torch.core.kmode import kmode_packed  # noqa: E402
 from repro_torch.data import dedup as dedup_mod  # noqa: E402
 from repro_torch.data.dedup import (dedup_by_sketch,  # noqa: E402
                                     dedup_by_sketch_blocked)
+from repro_torch.device import nonzero_2d  # noqa: E402
+from repro_torch.experiments import paper  # noqa: E402
 from repro_torch.data.pipeline import (BatchPipeline,  # noqa: E402
                                        PipelineConfig, synthetic_documents)
 from repro_torch.index import (QueryEngine, bulk_ingest,  # noqa: E402
@@ -259,6 +306,7 @@ from repro_torch.kernels.cabin_build_sparse import (  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.hamming import ops as hamming_ops  # noqa: E402
 from repro_torch.kernels.topk_select import ops as topk_ops  # noqa: E402
+from repro_torch.models import hashed_embedding as hemb  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve import Deadline, FrontDoor, ServeEngine  # noqa: E402
 
@@ -310,10 +358,35 @@ CORPUS_SHARDS, CORPUS_WINDOW, CORPUS_THRESHOLD = 4, 512, 40.0
 CORPUS_QUERIES = 256
 PIPE_SEQ, PIPE_BATCH, PIPE_BATCHES = 2048, 8, 16
 
+# the paper phase: rows a figure (BrainCell's whole Table 1 count; NIPS
+# has 1,500 and takes them all), the
+# clusters of the clustering figures, the twins' (scale, dims) of
+# benchmarks/bench_paper.py, rows of the card-against-CPU baseline check,
+# B3's rows held to its plain version at each end of its output, worker
+# processes drawing the rows; the kernels its figures launch
+PAPER_ROWS, PAPER_K = 2000, 4
+PAPER_TWINS = {"fig2": (0.08, (512,)), "fig3": (0.06, (128, 256, 512, 1024)),
+               "fig4": (0.06, (256,)), "fig5": (0.06, (512,)),
+               "fig6to10": (0.05, (256, 512)), "table4": (0.02, (1024,))}
+PAPER_CPU_ROWS, PAPER_B3_ROWS, PAPER_WORKERS = 4, 64, 2
+PAPER_KERNELS = ("cabin_build", "pair_stats", "row_popcount")
+# the CabinEmbed run of the LM phase: its bucket count (this phase's own
+# choice: the reference sets one only in a smoke test, 64) and k, and its
+# greedy new tokens
+HASHED_BUCKETS, HASHED_K, HASHED_NEW = 16384, 2, 8
+# the card's hashed_logits against the CPU's: float32 sums of 4,096 bf16
+# products in two orders, held to 2**-10 of the largest |logit| (a wrong
+# bucket or sign moves a logit by its own size)
+HASHED_LOGIT_RTOL = 2**-10
+
 # the LM phase: llama3-8B at full width and depth, 4 requests of 1,024
 # prompt tokens, caches of 2,048 positions, 32 greedy new tokens
 LM_ARCH = "llama3_8b"
 LM_BATCH, LM_PROMPT, LM_MAX_LEN, LM_NEW = 4, 1024, 2048, 32
+# bytes the dense run may leave on the card beyond its recorded attention
+# call once its weights are freed (its prompts and the allocator's
+# rounding; one dense layer alone is 0.4 GiB)
+LM_LEFT_SLACK = 2**26
 # End-to-end tolerance of the kernel LM path against the plain one
 # (attention_impl="ref"): the paths differ only in the attention's
 # float32 summation order, which moves a bf16-rounded attention output by
@@ -1728,20 +1801,21 @@ def compare_lm(got, plain) -> dict:
     first step where the plain run's top-1 / top-2 margin is under
     LOGIT_TOL.  Returns the readings and whether the rule holds."""
     diff = float((got.prefill_logits - plain.prefill_logits).abs().max())
+    n_req, n_new = plain.tokens.shape
     same_history, step_diff = 0, 0.0
-    for r in range(LM_BATCH):
+    for r in range(n_req):
         differ = np.flatnonzero(got.tokens[r] != plain.tokens[r])
-        upto = LM_NEW if len(differ) == 0 else int(differ[0]) + 1
+        upto = n_new if len(differ) == 0 else int(differ[0]) + 1
         step_diff = max(step_diff, float((got.step_logits[r, :upto]
                                           - plain.step_logits[r, :upto])
                                          .abs().max()))
         same_history += upto
     top2 = plain.step_logits.topk(2, dim=-1).values
-    margin = (top2[..., 0] - top2[..., 1]).cpu().numpy()  # (B, LM_NEW)
+    margin = (top2[..., 0] - top2[..., 1]).cpu().numpy()  # (B, n_new)
     compared, token_fault = [], None
-    for r in range(LM_BATCH):
+    for r in range(n_req):
         steps = 0
-        for i in range(LM_NEW):
+        for i in range(n_new):
             steps += 1
             if margin[r, i] < LOGIT_TOL:
                 break  # near-tie: either token is right, paths may part
@@ -1808,17 +1882,19 @@ def planted_faults(cfg, params, prompts, plain) -> None:
                   f"fault ({where}) through: {reading}")
 
 
-def lm_phase(seed: int, card: str) -> tuple[tuple, dict]:
+def lm_phase(seed: int, card: str) -> tuple[tuple, dict, dict]:
     """llama3-8B served by the kernel path (attention_impl None: the flash
     kernel on CUDA), then by the plain path (attention_impl "ref"), both
     through ServeEngine.generate on one set of random weights, checked
     against each other, end to end and layer by layer; then the planted
-    faults.  Returns the (q, k, v) of the kernel path's first attention
-    call and its launch counts."""
+    faults; then the same model with CabinEmbed (cabinembed_run).  Returns
+    the (q, k, v) of the kernel path's first attention call, its launch
+    counts and the CabinEmbed run's."""
     cfg = get_config(LM_ARCH)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     torch.cuda.synchronize()
+    held_before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     params = T.init_params(cfg, gen, device="cuda")
     torch.cuda.synchronize()
@@ -1898,7 +1974,398 @@ def lm_phase(seed: int, card: str) -> tuple[tuple, dict]:
     q, k, v, causal, _ = qkv
     check(causal, "the prefill attention is causal")
     planted_faults(cfg, params, prompts, runs["plain"])
-    return (q, k, v), kernel_launches
+    # the dense model's weights, engines and logits go before CabinEmbed's
+    # are drawn: what stays is the first attention call's record
+    del engine, params, runs, res
+    torch.cuda.empty_cache()
+    kept = sum(t.numel() * t.element_size() for t in qkv
+               if isinstance(t, torch.Tensor))
+    left = torch.cuda.memory_allocated() - held_before
+    check(left <= kept + LM_LEFT_SLACK, f"{left} bytes of the dense run "
+          f"left on the card, {kept} expected")
+    log(f"[lm] dense model freed: {left} bytes allocated beyond the phase's "
+        f"start ({kept} of them the recorded first attention call)")
+    hashed = cabinembed_run(cfg, gen, prompts, n_params, card)
+    return (q, k, v), kernel_launches, hashed
+
+
+def cabinembed_run(cfg, gen: torch.Generator, prompts: torch.Tensor,
+                   dense_params: int, card: str) -> dict:
+    """llama3-8B with the hashed (CabinEmbed) embedding and tied head at
+    full width and depth, weights drawn on the card (the dense model's
+    freed first): the card's hashed_embed / hashed_logits against the
+    same functions on CPU copies (embeddings bit for bit, logits within
+    HASHED_LOGIT_RTOL of their largest |value|), then a prefill and
+    HASHED_NEW greedy tokens through the kernel path and the plain path,
+    held to each other by the end-to-end rule, and the kernel path's 32
+    prefill attention outputs each to B6's tolerance.  Returns the kernel
+    path's launch counts and the run's record."""
+    hcfg = dataclasses.replace(cfg, hashed_embedding=True,
+                               hashed_embedding_buckets=HASHED_BUCKETS,
+                               hashed_embedding_k=HASHED_K)
+    params = T.init_params(hcfg, gen, device="cuda")
+    n_params = T.count_params(params)
+    log(f"[lm:cabinembed] {hcfg.name} with CabinEmbed: {HASHED_BUCKETS} "
+        f"buckets (this phase's choice; the reference sets a bucket count "
+        f"only in a smoke test, 64), k = {HASHED_K}: table "
+        f"{HASHED_BUCKETS} x {hcfg.d_model} in place of {hcfg.vocab_size} x "
+        f"{hcfg.d_model} and no separate head; {n_params} parameters "
+        f"against the dense model's {dense_params} "
+        f"({n_params / dense_params:.4f} of them)")
+    table = params["hashed_embed"]
+    on_cpu = {"table": table["table"].cpu()}
+    toks = prompts[:1, :64]
+    check(torch.equal(hemb.hashed_embed(hcfg, table, toks).cpu(),
+                      hemb.hashed_embed(hcfg, on_cpu, toks.cpu())),
+          "hashed_embed on the card != on the CPU")
+    xh = torch.randn((1, 64, hcfg.d_model), generator=gen, device="cuda"
+                     ).to(torch.bfloat16)
+    want = hemb.hashed_logits(hcfg, on_cpu, xh.cpu())
+    logit_err = float((hemb.hashed_logits(hcfg, table, xh).cpu()
+                       - want).abs().max())
+    logit_scale = float(want.abs().max())
+    check(logit_err <= HASHED_LOGIT_RTOL * logit_scale,
+          f"hashed_logits on the card differ from the CPU's by {logit_err}"
+          f" (largest |logit| {logit_scale})")
+    log(f"[lm:cabinembed] card against CPU copies: hashed_embed "
+        f"bit-identical over {toks.numel()} tokens; hashed_logits max "
+        f"|diff| {logit_err} (tolerance {HASHED_LOGIT_RTOL} of the largest "
+        f"|logit| {logit_scale})")
+    runs, rec = {}, {"params": n_params, "dense_params": dense_params,
+                     "buckets": HASHED_BUCKETS, "k": HASHED_K,
+                     "logit_err": logit_err}
+    for path, impl in (("kernel", None), ("plain", "ref")):
+        engine = ServeEngine(hcfg, params,
+                             ParallelConfig(attention_impl=impl))
+        engine.generate(prompts[:1, :64], 2, 128)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        res = engine.generate(prompts, HASHED_NEW, LM_MAX_LEN,
+                              keep_logits=True)
+        launches = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = {k: 0 for k in launches}
+        if path == "kernel":
+            want["flash_attention"] = hcfg.n_layers  # one prefill
+            _, seen = record_attention(lambda: engine.generate(
+                prompts, 1, LM_MAX_LEN), hcfg.n_layers)
+            ratios = layer_ratios(seen)
+            del seen
+            kernel_launches = launches
+        check(launches == want, f"cabinembed {path}: kernel launches "
+              f"{launches}, expected {want}")
+        check(bool(torch.isfinite(res.prefill_logits).all())
+              and bool(torch.isfinite(res.step_logits).all()),
+              f"cabinembed {path}: logits not finite")
+        runs[path] = res
+        rec[path] = {"prefill_s": res.prefill_s, "decode_s": res.decode_s,
+                     "peak_gib": peak}
+        log(f"[lm:cabinembed:{path}] prefill {LM_BATCH} x {LM_PROMPT} "
+            f"tokens {res.prefill_s:.3f}s, decode {HASHED_NEW} steps "
+            f"{res.decode_s:.3f}s ({LM_BATCH * HASHED_NEW / res.decode_s:.1f}"
+            f" tokens/s), peak device memory {peak:.2f} GiB, launches "
+            f"{launches} [{card}]")
+    reading = compare_lm(runs["kernel"], runs["plain"])
+    check(reading["ok"], f"the CabinEmbed kernel path disagrees with the "
+          f"plain one: {reading}")
+    worst = int(np.argmax(ratios))
+    check(max(ratios) <= 1, f"CabinEmbed: the flash kernel in layer {worst}"
+          f" differs from the plain attention by {ratios[worst]} of the "
+          f"tolerance")
+    rec.update(prefill_diff=reading["prefill_diff"],
+               step_diff=reading["step_diff"], same=reading["same"],
+               layer_ratio_max=ratios[worst])
+    log(f"[lm:cabinembed] kernel vs plain path: prefill logits max |diff| "
+        f"{reading['prefill_diff']} (tolerance {LOGIT_TOL}; largest |logit| "
+        f"{reading['scale']}); tokens compared for {reading['compared']} "
+        f"steps per request; {reading['same']} of {LM_BATCH} requests "
+        f"identical over {HASHED_NEW} tokens; per layer, the largest ratio "
+        f"to the B6 tolerance {ratios[worst]} (layer {worst})")
+    del params, runs
+    torch.cuda.empty_cache()
+    return {"launches": kernel_launches, "record": rec}
+
+
+# ---------------------------------------------------------------------------
+# the paper's experiments at Table 1's full widths
+# ---------------------------------------------------------------------------
+
+
+def paper_dims() -> dict:
+    """Each figure's sketch dimensions at full width: the twin's
+    (benchmarks/bench_paper.py) d over its scale, rounded up to 32."""
+    return {fig: tuple(paper.full_width_dim(d, scale) for d in dims)
+            for fig, (scale, dims) in PAPER_TWINS.items()}
+
+
+def paper_rows(name: str) -> int:
+    """PAPER_ROWS, or the dataset's whole Table 1 count where smaller
+    (NIPS: 1,500 points)."""
+    return min(PAPER_ROWS, paper.TABLE1[name].n_points)
+
+
+def start_paper_samples(pool, seed: int) -> dict:
+    """Draws, in worker processes, each dataset's rows at full width
+    (seed + 1, fig3's seed) and as many clustered rows (k = PAPER_K,
+    seed + 5, fig6's), BrainCell's plain rows first: the generator's
+    rng.choice over n_dims is O(n_dims) a row on the host."""
+    jobs = {}
+    for name in sorted(paper.TABLE1,
+                       key=lambda n: -paper.TABLE1[n].n_dims):
+        jobs[(name, 0)] = pool.apply_async(
+            timed_sample, (name, paper_rows(name), seed + 1, 0))
+    for name in paper.TABLE1:
+        jobs[(name, PAPER_K)] = pool.apply_async(
+            timed_sample, (name, paper_rows(name), seed + 5, PAPER_K))
+    return jobs
+
+
+def timed_sample(name: str, rows: int, seed: int, clusters: int):
+    t0 = time.perf_counter()
+    smp = paper.sample(name, 1.0, rows, seed=seed, clusters=clusters)
+    return smp, time.perf_counter() - t0
+
+
+def baselines_card_vs_cpu(smp, d: int, device) -> None:
+    """Each baseline sketch of a few rows' BinEm bits on the card equals
+    the same function on CPU copies, bit for bit."""
+    x = smp.head(PAPER_CPU_ROWS).dense(device)
+    n = smp.spec.n_dims
+    bits = binem(CabinParams.create(n, d, seed=0), x)
+    bits_cpu = bits.cpu()
+    check(torch.equal(bits_cpu, binem(CabinParams.create(n, d, seed=0),
+                                      x.cpu())),
+          f"{smp.spec.name}: BinEm on the card != on the CPU")
+    bp = baselines.BaselineParams(n, d, 0)
+    for name in ("bcs", "hlsh", "fh", "simhash"):
+        fn = getattr(baselines, f"{name}_sketch")
+        check(torch.equal(fn(bp, bits).cpu(), fn(bp, bits_cpu)),
+              f"{smp.spec.name}: {name} sketch on the card != on the CPU")
+
+
+def once(fn):
+    """fn()'s result and its device time in ms (one run, L2 flushed)."""
+    box = []
+    ms = cuda_ms(lambda: box.append(fn()), 1, warmup=0)
+    return box[-1], ms
+
+
+def paper_kernel_checks(smp, d: int, dims: list, rates: dict,
+                        widest: dict, device) -> None:
+    """B3, B4 and B5 against their plain versions, bit for bit, at the
+    shapes the figures give them: B5 on all rows at each figure's d and at
+    Theorem 2's d; B4 on all rows' sketches at the widest of these d; B3's
+    full all-pairs output over all rows, both outputs on those sketches
+    and inner only on the exact distances' (attribute, category) bitmaps,
+    held on its first and last PAPER_B3_ROWS rows (the last include the
+    kernel's partial row tile) against the plain version on the same rows
+    (the plain version's cost over all 2,000^2 pairs is half a minute).
+    Keeps the widest of each kernel in `widest`, with its times at the
+    checked shape and its bound."""
+    x = smp.dense(device)
+    name = smp.spec.name
+    n_rows = x.shape[0]
+
+    def b5_plain(kw):
+        step = max(1, 2**26 // x.shape[1])
+        return torch.cat([dense_ops.cabin_build_ref(x[r:r + step], **kw)
+                          for r in range(0, n_rows, step)])
+
+    for dd in sorted(set(dims) | {d}):
+        cp = CabinParams.create(smp.spec.n_dims, dd, seed=10)
+        kw = dict(d=dd, psi_seed=cp.psi_seed, pi_seed=cp.pi_seed)
+        b5_want, b5_plain_ms = once(lambda: b5_plain(kw))
+        sk = dense_ops.cabin_build(x, **kw)
+        check(torch.equal(sk, b5_want), f"{name}: cabin_build != plain "
+              f"version at n = {smp.spec.n_dims}, d = {dd}")
+        del b5_want
+    # the loop ends at the widest d
+    b5_ms = cuda_ms(lambda: dense_ops.cabin_build(x, **kw), 3)
+    w = sk.shape[1]
+    b4_want, b4_plain_ms = once(lambda: hamming_ops.row_popcount_ref(sk))
+    check(torch.equal(hamming_ops.row_popcount(sk), b4_want),
+          f"{name}: row_popcount != plain version at W = {w}")
+    ends = torch.arange(n_rows, device=x.device)
+    ends = ends[(ends < PAPER_B3_ROWS) | (ends >= n_rows - PAPER_B3_ROWS)]
+    got = hamming_ops.pair_stats(sk, sk)
+    want = hamming_ops.pair_stats_ref(sk[ends], sk)
+    check(all(torch.equal(g[ends], r) for g, r in zip(got, want)),
+          f"{name}: pair_stats != plain version at W = {w}")
+    del got, want
+    rows, attrs = nonzero_2d(x)
+    vals = x[rows, attrs].to(torch.int64)
+    _, key = torch.unique(attrs * (int(vals.max()) + 1) + vals,
+                          return_inverse=True)
+    bitmap = paper._bitmap(rows, key, n_rows)
+    r5, c5 = nonzero_2d(x)
+    live = len(r5)
+    psi_hits = int(hashing.psi_bits(c5, x[r5, c5], cp.psi_seed).sum())
+    x_numel, x_width = x.numel(), x.shape[1]
+    del x, rows, attrs, vals, key, r5, c5
+    bq = bitmap[ends].contiguous()
+    m, n, wb = bq.shape[0], bitmap.shape[0], bitmap.shape[1]
+    b3_want, b3_plain_ms = once(lambda: hamming_ops.pair_stats_ref(
+        bq, bitmap, op_ham=False)[0])
+    check(torch.equal(hamming_ops.pair_stats(bitmap, bitmap, op_ham=False)
+                      [0][ends], b3_want),
+          f"{name}: pair_stats != plain version on the key bitmaps, "
+          f"W = {wb}")
+    log(f"[paper:{name}] bit-identical to the plain versions: B5 on "
+        f"{n_rows} x {x_width} at d = {sorted(set(dims) | {d})} (Theorem "
+        f"2's d = {d}); at the widest d = {kw['d']} (W = {w}) B4 on "
+        f"({sk.shape[0]}, {w}) and B3's {n} x {n} output on {w} words "
+        f"(both outputs) and on the key bitmaps' {wb} words (inner only), its rows 0-{PAPER_B3_ROWS - 1} and "
+        f"{n - PAPER_B3_ROWS}-{n - 1} against the plain version")
+
+    def keep(kernel, shape_w, entry):
+        if kernel not in widest or widest[kernel]["w"] < shape_w:
+            b_ms, b_by = bound(entry.pop("bytes"), entry.pop("ops"), rates)
+            widest[kernel] = dict(entry, w=shape_w, bound_ms=b_ms,
+                                  bound_by=b_by, dataset=name,
+                                  max_abs_err=0)
+
+    keep("cabin_build", smp.spec.n_dims, {
+        "shape": f"{n_rows} x {x_width} -> d = {kw['d']}",
+        "ms": b5_ms,
+        "plain_ms": b5_plain_ms,
+        # every category read once, every sketch word written; a zero
+        # test per value, 22 operations per live value and 14 where psi
+        # is 1 (as the kernel phase counts B5)
+        "bytes": x_numel * 4 + n_rows * w * 4,
+        "ops": {"int32": x_numel + live * 22 + psi_hits * 14}})
+    keep("pair_stats", wb, {
+        "shape": f"{m} x {n} x {wb} words (the first and last "
+                 f"{PAPER_B3_ROWS} rows), inner only",
+        "ms": cuda_ms(lambda: hamming_ops.pair_stats(bq, bitmap,
+                                                     op_ham=False), 3),
+        "plain_ms": b3_plain_ms,
+        f"ms_{n}x{n}": cuda_ms(lambda: hamming_ops.pair_stats(
+            bitmap, bitmap, op_ham=False), 3),
+        f"bound_ms_{n}x{n}": bound((2 * n) * wb * 4 + n * n * 4,
+                                   pair_ops_needed(n, n, wb), rates)[0],
+        "bytes": (m + n) * wb * 4 + m * n * 4,
+        "ops": pair_ops_needed(m, n, wb)})
+    keep("row_popcount", w, {
+        "shape": f"({sk.shape[0]}, {w})",
+        "ms": cuda_ms(lambda: hamming_ops.row_popcount(sk), 10),
+        "plain_ms": b4_plain_ms,
+        "bytes": sk.numel() * 4 + sk.shape[0] * 4,
+        "ops": {"int32": sk.numel(), "popc": sk.numel()}})
+
+
+def paper_summary(record: dict) -> dict:
+    """The paper phase's record without the per-figure detail the log
+    already holds: seconds and each figure's headline numbers."""
+    out = {k: record[k] for k in ("dims", "phase_s", "peak_gib", "wait_s")}
+    for name, res in record["results"].items():
+        fig3 = res.get("fig3", {})
+        top = max(paper_dims()["fig3"])
+        out[name] = {
+            "seconds": res["seconds"],
+            "speedups": {m: res["fig2"].get(f"speedup_{m}")
+                         for m in paper.BASELINES},
+            "rmse_top_d": {m: fig3.get(f"{name}.{m}.d{top}")
+                           for m in paper.METHODS},
+            "mae": res["table4"].get("mae"),
+            "theorem2": {k: res["theorem2"].get(k)
+                         for k in ("frac_within", "bound", "d", "s")}}
+    return out
+
+
+def paper_phase(jobs: dict, card: str, rates: dict, device) -> dict:
+    """Every figure function of repro_torch.experiments.paper on each of
+    Table 1's six datasets at full width, PAPER_ROWS rows, with the launch
+    counts set to 0 just before and B3-B5 risen just after; then the
+    baselines on the card against the CPU and B3-B5 against their plain
+    versions at each dataset's widest shapes.  Fails if any ordering the
+    reference asserts does not hold (after running every figure)."""
+    phase_t0 = time.perf_counter()
+    dims = paper_dims()
+    log(f"[paper] full-width sketch dimensions (twin d / twin scale, up to "
+        f"a multiple of 32): {dims}; Theorem 2's d = sketch_dim(max nnz)")
+    t0 = time.perf_counter()
+    samples = {key: job.get() for key, job in jobs.items()}
+    wait_s = time.perf_counter() - t0
+    log(f"[paper] rows drawn on the host in {PAPER_WORKERS} worker "
+        f"processes, started when the corpus phase ended: " + ", ".join(
+            f"{n}{'' if c == 0 else f' (k={c})'} {s:.1f}s"
+            for (n, c), (_, s) in samples.items())
+        + f"; the phase waited {wait_s:.1f}s for them")
+    samples = {key: smp for key, (smp, _) in samples.items()}
+    out, failures = {}, []
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    for name in paper.TABLE1:
+        plain, clus = samples[(name, 0)], samples[(name, PAPER_K)]
+        spec = plain.spec
+        runs = {
+            "fig2": lambda: paper.fig2_table3_reduction_speed(
+                d=dims["fig2"][0], data=plain, device=device),
+            "fig3": lambda: paper.fig3_rmse(
+                dims=dims["fig3"], names=(name,), data={name: plain},
+                device=device),
+            "fig4": lambda: paper.fig4_binem_variance(
+                d=dims["fig4"][0], data=plain, device=device),
+            "fig5": lambda: paper.fig5_step2_variance(
+                d=dims["fig5"][0], data=plain, device=device),
+            "fig6to10": lambda: paper.fig6to10_clustering(
+                k=PAPER_K, dims=dims["fig6to10"], data=clus, device=device),
+            "table4": lambda: paper.table4_heatmap(
+                d=dims["table4"][0], data=plain, device=device),
+            "theorem2": lambda: paper.theorem2_check(data=plain,
+                                                     device=device)}
+        res = out[name] = {"n_dims": spec.n_dims, "density": spec.density,
+                           "n_categories": spec.n_categories,
+                           "rows": plain.n_rows, "seconds": {}}
+        for fig, run in runs.items():
+            t0 = time.perf_counter()
+            try:
+                res[fig] = run()
+                if fig == "fig5":  # the per-trial errors stay out of the log
+                    for v in res[fig].values():
+                        v.pop("errors")
+            except AssertionError as err:
+                failures.append(f"{name} {fig}: {err}")
+                res[fig] = {"failed": str(err)[:500]}
+            torch.cuda.synchronize(device)
+            res["seconds"][fig] = time.perf_counter() - t0
+        log(f"[paper:{name}] n = {spec.n_dims}, {spec.n_categories} "
+            f"categories, density {spec.density}, {plain.n_rows} rows: "
+            f"{json.dumps(res, default=str)}")
+        fig2 = res["fig2"]
+        if "seconds" in fig2:
+            log(f"[paper:{name}] Table 3, Cabin's sketching speedup over "
+                + ", ".join(f"{m} {fig2[f'speedup_{m}']:.2f}x"
+                            for m in paper.BASELINES)
+                + f" ({plain.n_rows} rows, d = {fig2['d']}) [{card}]")
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[paper] kernel launches: {launches}; peak device memory "
+        f"{peak:.2f} GiB; figures {time.perf_counter() - phase_t0:.1f}s")
+    for kernel in PAPER_KERNELS:
+        check(launches[kernel] > 0,
+              f"kernel {kernel} was not launched in the paper phase")
+    widest = {}
+    for name in paper.TABLE1:
+        plain = samples[(name, 0)]
+        baselines_card_vs_cpu(plain, dims["fig2"][0], device)
+        thm2 = out[name]["theorem2"]
+        if "d" in thm2:
+            paper_kernel_checks(plain, thm2["d"],
+                                [dd for ds in dims.values() for dd in ds],
+                                rates, widest, device)
+    log(f"[paper] baseline sketches of {PAPER_CPU_ROWS} rows a dataset on "
+        f"the card equal the CPU's, bit for bit; widest shapes: "
+        f"{json.dumps(widest)}")
+    for f in failures:
+        log(f"[paper] FAILED {f}")
+    check(not failures, f"{len(failures)} of the reference's orderings "
+          f"failed in the paper phase")
+    phase_s = time.perf_counter() - phase_t0
+    log(f"[paper] {phase_s:.1f}s in all")
+    return {"launches": launches, "widest": widest,
+            "record": {"results": out, "dims": dims, "phase_s": phase_s,
+                       "peak_gib": peak, "wait_s": wait_s}}
 
 
 # ---------------------------------------------------------------------------
@@ -2493,6 +2960,11 @@ def smoke(seed: int, device=torch.device("cuda")) -> None:
             paths["cabin_build_sparse"], "cabin_sparse_kernel",
             "slots a load, bitmap in device memory", 6)}
 
+    smoke_phases(seed, device, card, name, sass, usage)
+
+
+def smoke_phases(seed: int, device, card: str, name: str, sass: dict,
+                 usage: dict) -> None:
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     t0 = time.perf_counter()
@@ -2533,11 +3005,19 @@ def smoke(seed: int, device=torch.device("cuda")) -> None:
     runs["lifecycle"] = lifecycle_phase(idx, val, gen, rng, card)
     runs["corpus"] = corpus_phase(seed, card, device)
 
-    qkv, lm_launches = lm_phase(seed, card)
+    rates = peak_rates()
+    # the paper phase's rows are drawn on the host in worker processes,
+    # started only now so that no phase before shares the host's cores
+    # with them while it takes its readings; they end with the phase
+    with multiprocessing.get_context("spawn").Pool(PAPER_WORKERS) as pool:
+        papered = paper_phase(start_paper_samples(pool, seed), card, rates,
+                              device)
+    torch.cuda.empty_cache()
+
+    qkv, lm_launches, hashed = lm_phase(seed, card)
     launches["flash_attention"] = lm_launches["flash_attention"]
     torch.cuda.empty_cache()
 
-    rates = peak_rates()
     kernels = kernel_phases(CabinParams.create(N_DIMS, SKETCH_DIM, seed=0),
                             idx, val, dense, runs, qkv, launches, rates,
                             sass, usage)
@@ -2547,9 +3027,15 @@ def smoke(seed: int, device=torch.device("cuda")) -> None:
             entry["name"]]
         entry["cluster_launches"] = clustered["launches"][entry["name"]]
         entry["corpus_launches"] = runs["corpus"]["launches"][entry["name"]]
+        entry["paper_launches"] = papered["launches"][entry["name"]]
+        entry["cabinembed_launches"] = hashed["launches"][entry["name"]]
+        if entry["name"] in papered["widest"]:
+            entry["paper_width"] = papered["widest"][entry["name"]]
     print(json.dumps({"lifecycle": runs["lifecycle"]["record"],
                       "cluster": clustered["record"],
-                      "corpus": runs["corpus"]["record"]}))
+                      "corpus": runs["corpus"]["record"],
+                      "paper": paper_summary(papered["record"]),
+                      "cabinembed": hashed["record"]}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

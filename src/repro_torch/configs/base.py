@@ -53,6 +53,8 @@ class ModelConfig:
     frontend: str | None = None  # vision | audio | None (stub embeddings)
     # paper-technique integration knobs
     hashed_embedding: bool = False  # CabinEmbed hashed vocab embedding
+    hashed_embedding_buckets: int = 0
+    hashed_embedding_k: int = 2
     precision: Precision = field(default_factory=Precision)
 
     @property

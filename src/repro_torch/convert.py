@@ -51,7 +51,8 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
 def lm_params_from_reference(cfg: ModelConfig, tree: dict, device="cuda"
                              ) -> dict:
     """The port's LM parameters from the JAX package's `init_params` tree
-    as numpy arrays: `embed.table`, `stages[i]` (each layer's leaves
+    as numpy arrays: `embed.table` (`hashed_embed.table` for a CabinEmbed
+    config), `stages[i]` (each layer's leaves
     stacked over the stage's repeat axis), `final_norm` and `lm_head`.
     Returns them unstacked, one dict per layer in layer order, so that
     both packages compute the same model."""
@@ -67,7 +68,8 @@ def lm_params_from_reference(cfg: ModelConfig, tree: dict, device="cuda"
         for r in range(stage.n_repeat):
             layers.extend(conv(sp[f"l{i}"], r)
                           for i in range(len(stage.specs)))
-    params = {"embed": conv(tree["embed"]), "layers": layers,
+    embed = "hashed_embed" if cfg.hashed_embedding else "embed"
+    params = {embed: conv(tree[embed]), "layers": layers,
               "final_norm": conv(tree["final_norm"])}
     if "lm_head" in tree:
         params["lm_head"] = conv(tree["lm_head"])

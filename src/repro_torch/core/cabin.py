@@ -20,6 +20,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.core import hashing, packing
+from repro_torch.device import nonzero_2d
 
 
 def _derive_seeds(seed: int) -> tuple[int, int]:
@@ -49,9 +50,14 @@ class CabinParams:
 
 
 def binem(params: CabinParams, x: torch.Tensor) -> torch.Tensor:
-    """BinEm on dense categorical rows: (..., n) {0..c} -> (..., n) {0,1}."""
-    idx = torch.arange(x.shape[-1], dtype=torch.int64, device=x.device)
-    return hashing.psi_bits(idx, x, params.psi_seed)
+    """BinEm on dense categorical rows: (..., n) {0..c} -> (..., n) {0,1}
+    int32.  psi(i, 0) = 0, so only the nonzero entries are hashed."""
+    flat = x.reshape(-1, x.shape[-1])
+    out = torch.zeros(flat.shape, dtype=torch.int32, device=x.device)
+    rows, cols = nonzero_2d(flat)
+    out[rows, cols] = hashing.psi_bits(cols, flat[rows, cols],
+                                       params.psi_seed)
+    return out.reshape(x.shape)
 
 
 def binsketch(params: CabinParams, bits: torch.Tensor) -> torch.Tensor:

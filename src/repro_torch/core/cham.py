@@ -77,22 +77,104 @@ def cham_from_table(table: torch.Tensor, wa: torch.Tensor, wb: torch.Tensor,
     return 2.0 * binhamming_from_table(table, wa, wb, inner)
 
 
-def binhamming_from_stats(wu: torch.Tensor, wv: torch.Tensor,
-                          inner: torch.Tensor, d: int) -> torch.Tensor:
-    """h_hat = estimated HD(u', v') from sketch statistics (broadcasting)."""
+def _stats_table(d: int, wu: torch.Tensor, wv: torch.Tensor,
+                 inner: torch.Tensor) -> torch.Tensor:
+    """The Cham table for d, long enough for every union wu + wv - inner."""
     union = wu.to(torch.int64) + wv.to(torch.int64) - inner.to(torch.int64)
     top = max(d, int(union.max()) if union.numel() else 0)
-    table = cham_table(d, wu.device, packing.packed_width(top))
-    return binhamming_from_table(table, wu, wv, inner)
+    return cham_table(d, wu.device, packing.packed_width(top))
 
 
-def cham(u: torch.Tensor, v: torch.Tensor, d: int) -> torch.Tensor:
-    """Cham(u~, v~) between packed rows (..., w), broadcasting."""
-    wu = packing.popcount_rows(u)
-    wv = packing.popcount_rows(v)
-    inner = packing.popcount32(u & v).sum(dim=-1, dtype=torch.int32)
+def binhamming_from_stats(wu: torch.Tensor, wv: torch.Tensor,
+                          inner: torch.Tensor, d: int, *,
+                          obs_u: torch.Tensor | None = None,
+                          obs_v: torch.Tensor | None = None
+                          ) -> torch.Tensor:
+    """h_hat = estimated HD(u', v') from sketch statistics (broadcasting).
+
+    obs_u / obs_v (keyword-only, broadcasting like wu / wv) are per-row
+    observed-dimension counts under a miss model: a row whose record
+    dropped categories has at most obs set bits, so the estimates are
+    clamped into a_hat <= obs_u, b_hat <= obs_v and
+    max(a_hat, b_hat) <= u_hat <= a_hat + b_hat before the distance is
+    formed, as in the JAX package.  With both None the result is the table
+    path's, bit for bit; with a mask, the clamps run in float32 on the
+    table's entries."""
+    table = _stats_table(d, wu, wv, inner)
+    if obs_u is None and obs_v is None:
+        return binhamming_from_table(table, wu, wv, inner)
+    wu = wu.to(torch.int64)
+    wv = wv.to(torch.int64)
+    a_hat = table[wu]
+    b_hat = table[wv]
+    u_hat = table[wu + wv - inner.to(torch.int64)]
+    if obs_u is not None:
+        a_hat = torch.minimum(a_hat, obs_u.to(torch.float32))
+    if obs_v is not None:
+        b_hat = torch.minimum(b_hat, obs_v.to(torch.float32))
+    u_hat = torch.minimum(torch.maximum(u_hat, torch.maximum(a_hat, b_hat)),
+                          a_hat + b_hat)
+    return torch.clamp(2.0 * u_hat - a_hat - b_hat, min=0.0)
+
+
+def _packed_stats(u: torch.Tensor, v: torch.Tensor):
+    return (packing.popcount_rows(u), packing.popcount_rows(v),
+            packing.packed_inner(u, v))
+
+
+def binhamming(u: torch.Tensor, v: torch.Tensor, d: int, *,
+               obs_u: torch.Tensor | None = None,
+               obs_v: torch.Tensor | None = None) -> torch.Tensor:
+    """BinHamming on packed sketches (..., w), broadcasting -> estimated
+    HD(u', v')."""
+    wu, wv, inner = _packed_stats(u, v)
+    return binhamming_from_stats(wu, wv, inner, d, obs_u=obs_u, obs_v=obs_v)
+
+
+def cham(u: torch.Tensor, v: torch.Tensor, d: int, *,
+         obs_u: torch.Tensor | None = None,
+         obs_v: torch.Tensor | None = None) -> torch.Tensor:
+    """Cham(u~, v~) = 2 * BinHamming between packed rows (..., w),
+    broadcasting; obs_u / obs_v as in `binhamming_from_stats`."""
+    if obs_u is not None or obs_v is not None:
+        return 2.0 * binhamming(u, v, d, obs_u=obs_u, obs_v=obs_v)
+    wu, wv, inner = _packed_stats(u, v)
     return cham_from_table(cham_table(d, u.device, u.shape[-1]),
                            wu, wv, inner)
+
+
+def density_estimate(weight: torch.Tensor, d: int) -> torch.Tensor:
+    """Estimated pre-sketch Hamming weight from a sketch weight."""
+    top = max(d, int(weight.max()) if weight.numel() else 0)
+    table = cham_table(d, weight.device, packing.packed_width(top))
+    return table[weight.to(torch.int64)]
+
+
+def inner_estimate(u: torch.Tensor, v: torch.Tensor, d: int
+                   ) -> torch.Tensor:
+    """Estimated <u', v'> (BinSketch's inner-product estimate)."""
+    wu, wv, st = _packed_stats(u, v)
+    table = _stats_table(d, wu, wv, st)
+    wu = wu.to(torch.int64)
+    wv = wv.to(torch.int64)
+    ip = table[wu] + table[wv] - table[wu + wv - st.to(torch.int64)]
+    return torch.clamp(ip, min=0.0)
+
+
+def cosine_estimate(u: torch.Tensor, v: torch.Tensor, d: int
+                    ) -> torch.Tensor:
+    wu = density_estimate(packing.popcount_rows(u), d)
+    wv = density_estimate(packing.popcount_rows(v), d)
+    ip = inner_estimate(u, v, d)
+    return ip / torch.clamp(torch.sqrt(wu * wv), min=_EPS)
+
+
+def jaccard_estimate(u: torch.Tensor, v: torch.Tensor, d: int
+                     ) -> torch.Tensor:
+    wu = density_estimate(packing.popcount_rows(u), d)
+    wv = density_estimate(packing.popcount_rows(v), d)
+    ip = inner_estimate(u, v, d)
+    return ip / torch.clamp(wu + wv - ip, min=_EPS)
 
 
 def sketch_stats_matrix(a: torch.Tensor, b: torch.Tensor

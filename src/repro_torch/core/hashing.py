@@ -74,3 +74,15 @@ def pi_buckets(attr_idx, d: int, seed) -> torch.Tensor:
     """The attribute mapping pi: {0 .. n-1} -> {0 .. d-1} int32, an unsigned
     modulo of the seeded hash."""
     return (hash_u32(attr_idx, seed) % int(d)).to(torch.int32)
+
+
+def uniform01(x, seed) -> torch.Tensor:
+    """Hash to a float32 in [0, 1): the uint32 hash times 2**-32."""
+    h = torch.as_tensor(hash_u32(x, seed))
+    return h.to(torch.float32) * (1.0 / 4294967296.0)
+
+
+def rademacher(x, seed) -> torch.Tensor:
+    """Hash to {-1, +1} float32: +1 where the hash is odd."""
+    h = torch.as_tensor(hash_u32(x, seed))
+    return torch.where((h & 1) == 1, 1.0, -1.0).to(torch.float32)

@@ -20,13 +20,14 @@ sequence and produce identical clusterings on the same representation:
     representations and as the bit-level equivalence reference the device
     engine is held against.
 
-`kmode` is the NumPy host implementation over raw categorical matrices
-(chunked Hamming distances, per-attribute mode centres) used for the paper's
-full-data ground truth.  All entry points validate their arguments at the
-API boundary and survive degenerate data (duplicate-heavy rows, k >= the
-number of distinct rows, k > n) — the k-means++-style seeding falls back to
-uniform sampling over not-yet-chosen rows when the min-distance vector
-collapses to zero instead of crashing on an unnormalisable distribution.
+`kmode` clusters raw categorical matrices (Hamming distances from the
+rows' nonzero entries, per-attribute mode centres) on the tensor's device,
+for the paper's full-data ground truth.  All entry points validate their
+arguments at the API boundary and survive degenerate data (duplicate-heavy
+rows, k >= the number of distinct rows, k > n) — the k-means++-style
+seeding falls back to uniform sampling over not-yet-chosen rows when the
+min-distance vector collapses to zero instead of crashing on an
+unnormalisable distribution.
 """
 
 from __future__ import annotations
@@ -83,95 +84,125 @@ def _seed_indices(n: int, k: int, rng: np.random.Generator,
     return np.asarray(chosen, np.int64)
 
 
-def _hamming_to_centers(x: np.ndarray, centers: np.ndarray,
-                        chunk: int = 512) -> np.ndarray:
-    n, k = x.shape[0], centers.shape[0]
-    out = np.empty((n, k), dtype=np.int32)
-    for lo in range(0, n, chunk):
-        hi = min(lo + chunk, n)
-        out[lo:hi] = (x[lo:hi, None, :] != centers[None, :, :]).sum(axis=2)
-    return out
+class _Rows:
+    """kmode's distance and mode steps over a categorical tensor, on its
+    device, from its nonzero entries: HD(x, c) = nnz(x) + nnz(c) -
+    |S_x & S_c| - #{a : x_a = c_a != 0}, and each cluster's per-attribute
+    mode from the counts of its (attribute, category) entries, ties to the
+    lowest category as the reference's argmax over its count table breaks
+    them.  An empty cluster keeps its previous centre.  Integer work
+    throughout, so the labels and centres are the reference's."""
 
+    def __init__(self, x: "torch.Tensor"):
+        import torch
 
-def _plusplus_init(x: np.ndarray, k: int, rng: np.random.Generator
-                   ) -> np.ndarray:
-    def dist_to(i: int) -> np.ndarray:
-        return (x != x[i]).sum(axis=1).astype(np.float64)
+        from repro_torch.device import nonzero_2d
 
-    return x[_seed_indices(x.shape[0], k, rng, dist_to)]
+        self.torch = torch
+        self.x = x
+        self.r, self.a = nonzero_2d(x)
+        self.v = x[self.r, self.a].to(torch.int64)
+        self.nnz = torch.bincount(self.r, minlength=x.shape[0])
 
+    def _hd(self, centers) -> "torch.Tensor":
+        torch = self.torch
+        n, k = self.x.shape[0], centers.shape[0]
+        c = centers[:, self.a].to(torch.int64)  # (k, nnz)
+        shared = torch.zeros((k, n), dtype=torch.int64, device=c.device)
+        shared.index_add_(1, self.r, (c != 0).to(torch.int64)
+                          + (c == self.v).to(torch.int64))
+        c_nnz = (centers != 0).sum(dim=1)
+        return self.nnz[None, :] + c_nnz[:, None] - shared
 
-def _modes(x: np.ndarray, labels: np.ndarray, k: int, n_cats: int,
-           prev_centers: np.ndarray | None = None) -> np.ndarray:
-    """Per-cluster per-attribute mode via a (n_attrs, n_cats) count table.
+    def dist_to(self, i: int) -> np.ndarray:
+        return self._hd(self.x[i:i + 1])[0].cpu().numpy().astype(np.float64)
 
-    An EMPTY cluster keeps its previous centre: the old all-zeros
-    placeholder sat at the low-category corner of the space and captured
-    low-category rows on the next assignment pass, silently reshaping the
-    clustering around a centre no data ever elected."""
-    n_attr = x.shape[1]
-    centers = np.zeros((k, n_attr), dtype=x.dtype)
-    cols = np.arange(n_attr)
-    for c in range(k):
-        members = x[labels == c]
-        if len(members) == 0:
-            if prev_centers is not None:
-                centers[c] = prev_centers[c]
-            continue
-        table = np.zeros((n_attr, n_cats + 1), dtype=np.int32)
-        for row in members:
-            table[cols, row] += 1
-        centers[c] = table.argmax(axis=1).astype(x.dtype)
-    return centers
+    def rows(self, idx: np.ndarray):
+        return self.x[self.torch.from_numpy(idx).to(self.x.device)]
+
+    def to_centers(self, centers) -> np.ndarray:
+        return self._hd(centers).T.to(self.torch.int32).cpu().numpy()
+
+    def modes(self, labels: np.ndarray, k: int, prev):
+        torch = self.torch
+        n_attr = self.x.shape[1]
+        lab = torch.from_numpy(labels).to(self.x.device)
+        n_val = int(self.v.max()) + 1 if self.v.numel() else 1
+        key = ((lab[self.r] * n_attr + self.a) * n_val) + self.v
+        uk, cnt = torch.unique(key, return_counts=True)
+        slot, cat = uk // n_val, uk % n_val
+        top = torch.zeros(k * n_attr, dtype=torch.int64, device=uk.device)
+        top.scatter_reduce_(0, slot, cnt, reduce="amax")
+        at_top = cnt == top[slot]
+        low = torch.full((k * n_attr,), n_val, dtype=torch.int64,
+                         device=uk.device)
+        low.scatter_reduce_(0, slot[at_top], cat[at_top], reduce="amin")
+        seen = torch.zeros(k * n_attr, dtype=torch.int64, device=uk.device)
+        seen.index_add_(0, slot, cnt)
+        members = torch.bincount(lab, minlength=k)
+        zeros = members[:, None] - seen.view(k, n_attr)
+        centers = torch.where(zeros >= top.view(k, n_attr), 0,
+                              low.view(k, n_attr)).to(self.x.dtype)
+        empty = members == 0
+        if bool(empty.any()):
+            centers[empty] = prev[empty]
+        return centers
 
 
 def kmode(
-    x: np.ndarray,
+    x,
     k: int,
     n_iter: int = 15,
     seed: int = 0,
     n_categories: int | None = None,
     n_init: int = 3,
-) -> tuple[np.ndarray, np.ndarray]:
+):
     """Cluster rows of categorical matrix x into k clusters.
 
     Runs `n_init` k-means++-seeded restarts and keeps the one with the
     lowest within-cluster Hamming cost (standard restart practice; a single
     unlucky seeding otherwise dominates the comparison).
-    Returns (labels (N,), centers (k, n_attrs)).
+    Returns (labels (N,), centers (k, n_attrs)), labels numpy.  A tensor
+    is clustered on its device and its centres stay there; a numpy array
+    is clustered on the CPU and its centres come back as numpy.
+    `n_categories` is the reference's argument: the modes are counted
+    from the values present, so it changes nothing here.
     """
-    x = np.ascontiguousarray(x)
+    import torch  # local, as in kmode_packed
+
+    host = not isinstance(x, torch.Tensor)
+    if host:
+        x = torch.as_tensor(np.ascontiguousarray(x))
     if x.ndim != 2:
-        raise ValueError(f"kmode: expected a 2-d matrix, got shape {x.shape}")
+        raise ValueError(f"kmode: expected a 2-d matrix, got shape "
+                         f"{tuple(x.shape)}")
     _check_args(x.shape[0], k, n_iter, "kmode")
-    if n_categories is None:
-        n_categories = int(x.max())
+    data = _Rows(x)
+    n = x.shape[0]
     best = None
     for trial in range(max(n_init, 1)):
         rng = np.random.default_rng(seed * 1000 + trial)
-        centers = _plusplus_init(x, k, rng)
+        centers = data.rows(_seed_indices(n, k, rng, data.dist_to))
         # -1 sentinel + closing assignment: same discipline as
         # _kmedoids_run — a genuinely all-zeros first assignment (k = 1)
         # must not read as convergence, and returned labels must be an
         # assignment against the RETURNED centres
-        labels = np.full(x.shape[0], -1, dtype=np.int64)
+        labels = np.full(n, -1, dtype=np.int64)
         converged = False
         for _ in range(n_iter):
-            dist = _hamming_to_centers(x, centers)
-            new_labels = dist.argmin(axis=1)
+            new_labels = data.to_centers(centers).argmin(axis=1)
             if np.array_equal(new_labels, labels):
                 converged = True
                 break
             labels = new_labels
-            centers = _modes(x, labels, k, n_categories,
-                             prev_centers=centers)
+            centers = data.modes(labels, k, centers)
+        dist = data.to_centers(centers)
         if not converged:
-            labels = _hamming_to_centers(x, centers).argmin(axis=1)
-        cost = int(_hamming_to_centers(x, centers)[
-            np.arange(x.shape[0]), labels].sum())
+            labels = dist.argmin(axis=1)
+        cost = int(dist[np.arange(n), labels].sum())
         if best is None or cost < best[0]:
             best = (cost, labels, centers)
-    return best[1], best[2]
+    return best[1], best[2].cpu().numpy() if host else best[2]
 
 
 # ---------------------------------------------------------------------------
@@ -220,7 +251,7 @@ def _kmedoids_run(
     per-pair distances imply bit-equal labels; the backends only decide
     WHERE the distance arithmetic happens.
 
-    Empty clusters keep their current medoid (same rationale as `_modes`).
+    Empty clusters keep their current medoid (same rationale as kmode's modes).
     Returns (labels (n,), medoids (k,)) with the guarantee that `labels`
     IS a one-shot assignment against the final medoids: convergence breaks
     before any further update, and an n_iter-exhausted run (whose last

@@ -70,6 +70,27 @@ def popcount_rows(words: torch.Tensor) -> torch.Tensor:
     return popcount32(words).sum(dim=-1, dtype=torch.int32)
 
 
+def packed_hamming(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamming distance between packed rows (broadcasting over leading
+    dims): (..., w) -> (...,) int32."""
+    return popcount32(a ^ b).sum(dim=-1, dtype=torch.int32)
+
+
+def packed_inner(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Bitwise inner product <a, b> between packed rows (broadcasting)."""
+    return popcount32(a & b).sum(dim=-1, dtype=torch.int32)
+
+
+def pad_to_multiple(x: torch.Tensor, mult: int, axis: int) -> torch.Tensor:
+    """Zero-pad `axis` up to the next multiple of `mult`."""
+    pad = (-x.shape[axis]) % mult
+    if pad == 0:
+        return x
+    shape = list(x.shape)
+    shape[axis] = pad
+    return torch.cat([x, x.new_zeros(shape)], dim=axis)
+
+
 def pow2_bucket(n: int, floor: int = 8) -> int:
     """Next power of two >= max(n, floor): the store's capacity rule."""
     target = floor
@@ -105,3 +126,17 @@ def np_popcount_rows(words: np.ndarray) -> np.ndarray:
     return np.unpackbits(
         np.ascontiguousarray(words).view(np.uint8), axis=1).sum(
             axis=1, dtype=np.int64)
+
+
+def np_pack_bits(bits: np.ndarray) -> np.ndarray:
+    """NumPy twin of pack_bits for host-side pipelines and tests:
+    (..., d) {0,1} -> (..., ceil(d/32)) int32, LSB-first."""
+    *lead, d = bits.shape
+    w = packed_width(d)
+    pad = w * LANE_BITS - d
+    if pad:
+        bits = np.concatenate(
+            [bits, np.zeros((*lead, pad), dtype=bits.dtype)], axis=-1)
+    bits = bits.reshape(*lead, w, LANE_BITS).astype(np.uint32)
+    shifts = np.arange(LANE_BITS, dtype=np.uint32)
+    return np.sum(bits << shifts, axis=-1, dtype=np.uint32).astype(np.int32)

@@ -29,3 +29,19 @@ def on_device(x, device: torch.device) -> torch.Tensor:
     dtype kept."""
     return torch.as_tensor(x if torch.is_tensor(x) else np.asarray(x),
                            device=device)
+
+
+def nonzero_2d(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(rows, cols) int64 of a 2-d tensor's nonzero entries in row-major
+    order, found in row blocks of under 2**31 elements each (the most
+    torch.nonzero takes on a card)."""
+    step = max(1, (2**31 - 1) // max(1, x.shape[1]))
+    rows, cols = [], []
+    for r0 in range(0, x.shape[0], step):
+        r, c = torch.nonzero(x[r0:r0 + step], as_tuple=True)
+        rows.append(r + r0)
+        cols.append(c)
+    if not rows:
+        empty = torch.zeros(0, dtype=torch.int64, device=x.device)
+        return empty, empty
+    return torch.cat(rows), torch.cat(cols)

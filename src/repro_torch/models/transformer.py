@@ -1,6 +1,6 @@
 """Model assembly, after the JAX package's `repro.models.transformer`, for
 decoder stacks whose layers are all attention + dense MLP (the dense GQA
-family).
+family), with the dense or the hashed (CabinEmbed) vocabulary embedding.
 
 Layers run in a plain Python loop; parameters are one dict per layer in
 layer order (the JAX package stacks each stage's repeats for `lax.scan`;
@@ -24,6 +24,7 @@ import torch
 from repro_torch.configs.base import LayerSpec, ModelConfig, ParallelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import hashed_embedding as hemb
 from repro_torch.models.layers import (dense_init, dt, embed_init, matmul,
                                        mlp_apply, mlp_init, rmsnorm,
                                        rmsnorm_init)
@@ -61,16 +62,13 @@ def build_stages(cfg: ModelConfig) -> tuple[Stage, ...]:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError naming the slice that ports what `cfg`
-    needs beyond attention + dense MLP decoder layers."""
+    needs beyond attention + dense MLP decoder layers (either embedding)."""
     if cfg.kind != "decoder":
         raise NotImplementedError(f"{cfg.name}: kind {cfg.kind!r} waits for "
                                   "the enc-dec slice")
     if cfg.frontend is not None:
         raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend "
                                   "waits for the VLM / audio slice")
-    if cfg.hashed_embedding:
-        raise NotImplementedError(f"{cfg.name}: the hashed (CabinEmbed) "
-                                  "embedding waits for the CabinEmbed slice")
     for spec in cfg.all_layers():
         for part in (spec.mixer, spec.mlp):
             if part in _LATER:
@@ -100,12 +98,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     check_supported(cfg)
     device = resolve_device(device)
     pdt = dt(cfg.precision.param_dtype)
-    params = {"embed": {"table": embed_init(generator, cfg.vocab_size,
-                                            cfg.d_model, pdt, device)},
-              "layers": [_layer_init(cfg, generator, device)
-                         for _ in range(cfg.n_layers)],
-              "final_norm": rmsnorm_init(cfg.d_model, pdt, device)}
-    if not cfg.tie_embeddings:
+    if cfg.hashed_embedding:
+        params = {"hashed_embed": hemb.hashed_embed_init(cfg, generator,
+                                                         device)}
+    else:
+        params = {"embed": {"table": embed_init(generator, cfg.vocab_size,
+                                                cfg.d_model, pdt, device)}}
+    params["layers"] = [_layer_init(cfg, generator, device)
+                        for _ in range(cfg.n_layers)]
+    params["final_norm"] = rmsnorm_init(cfg.d_model, pdt, device)
+    if not cfg.tie_embeddings and not cfg.hashed_embedding:
         params["lm_head"] = dense_init(generator, cfg.d_model,
                                        cfg.vocab_size, pdt, device)
     return params
@@ -127,13 +129,17 @@ def count_params(params: dict) -> int:
 
 def embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor
                  ) -> torch.Tensor:
+    if cfg.hashed_embedding:
+        return hemb.hashed_embed(cfg, params["hashed_embed"], tokens)
     return params["embed"]["table"][tokens.long()]
 
 
 def lm_logits(cfg: ModelConfig, params: dict, x: torch.Tensor
               ) -> torch.Tensor:
     cdt = dt(cfg.precision.compute_dtype)
-    if cfg.tie_embeddings:
+    if cfg.hashed_embedding:
+        logits = hemb.hashed_logits(cfg, params["hashed_embed"], x)
+    elif cfg.tie_embeddings:
         logits = matmul(x, params["embed"]["table"].t(), cdt)
     else:
         logits = matmul(x, params["lm_head"], cdt)

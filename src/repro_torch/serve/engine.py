@@ -46,7 +46,8 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, params: dict,
                  pcfg: ParallelConfig = ParallelConfig(), device="cuda"):
         self.device = resolve_device(device)
-        table = params["embed"]["table"]
+        embed = "hashed_embed" if cfg.hashed_embedding else "embed"
+        table = params[embed]["table"]
         if table.device.type != self.device.type:
             raise ValueError(f"parameters lie on {table.device}, the engine "
                              f"serves on {self.device}")
